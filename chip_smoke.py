@@ -6,23 +6,48 @@
 Phases, in order (any failure exits non-zero):
   1. setup: print the card's name and power limit; build every CUDA kernel
      from `scorp_tpu_torch/csrc/` (one nvcc per source, in parallel).
-  2. full width: write a COLMAP scene (4 views at 1600x1066, 2 test views)
-     and a 250k-Gaussian SH-3 PLY drawn from `--seed` with bench.py's
-     room-scale distribution, then render the test views through
+  2. full width, eval path: write a COLMAP scene (4 views at 1600x1066, 2
+     test views; its points3D.bin holds the centres and colours of a
+     250k-Gaussian SH-3 scene drawn from `--seed` with bench.py's room-scale
+     distribution, its PNGs are that scene rendered by the port) and the
+     scene's PLY, then render the test views through
      `scorp_tpu_torch.apps.render_3dgs.main` on cuda. Checks the PNGs, zero
-     dropped keys, a non-empty frame, and that every kernel's launch counter
+     dropped keys, a non-empty frame, and that K1 and K2's launch counters
      rose during that run.
   3. kernel vs plain version on identical inputs at 50k / 800x600: K1
      (sorted keys identical without cull; kept counts within 0.01% + 8 with
      cull); K2 on one stream (color, alpha and depth/alpha within max 5e-3
      and mean 1e-5; n_contrib equal on >= 99.9% of pixels); a 2k-Gaussian
      render on the GPU against the plain path on the CPU.
-  4. at full width, on the main path's inputs: the same K1 and K2 checks,
+  4. at full width, on the eval path's inputs: the same K1 and K2 checks,
      K1 against the expansion golden (0.8 golden <= kept <= golden + 1000);
      then times: each kernel (CUDA-event median) beside its plain version and
      its bound, each stage of a frame, the ATen ops a frame dispatches, and
-     the device's busy time per frame from a torch.profiler trace. The
-     kernels are printed as one {"kernels": [...]} JSON line.
+     the device's busy time per frame from a torch.profiler trace.
+  5. K3 (the backward compositor) against its plain version at 50k /
+     800x600 on the differentiable rasterizer's inputs with cotangents from
+     `--seed`: d_table per column within 1e-4 x the column's largest value
+     (atomics add in a run-dependent order), d_bg within 1e-5, all finite;
+     and a 2k / 128x96 `rasterize` backward on the GPU against the CPU plain
+     path (every gradient within 1e-4 of its largest value).
+  6. full width, training path: `scorp_tpu_torch.apps.train_3dgs.main` on
+     cuda from the 250k points for 30 iterations (densification from
+     iteration 10 every 10, so one densify/prune and the capacity growth
+     run; evaluate after iteration 1 and at the end, printing the test and
+     train views' L1 and PSNR; save at the end). Checks that K1, K2 and K3
+     launched, finite losses (first and last printed), no NaN in the
+     parameters, the PLY written and loading back, and no dropped keys after
+     any regrow.
+  7. one `train_step` at bench.py's training measurement (250k SH-3, one
+     1600x1066 view, OptParams() at iteration 1000, random GT, black bg):
+     the step's CUDA-event median of 10, its forward, backward and Adam +
+     statistics apart, ATen ops per step, device busy time, peak memory;
+     the L1 + SSIM loss's forward and backward alone at that size; K3
+     against its plain version on the step's inputs (the checks of phase
+     5), its time beside its plain version and its bound, and K2's time with
+     n_contrib and t_final. The kernels are printed as one
+     {"kernels": [...]} JSON line, with each kernel's launches in the
+     training run of phase 6 (and K1/K2's in the eval run of phase 2).
 The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the repository beside it, it exits
@@ -48,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 rate outside the tensor cores
 K2_FLOPS_PER_PAIR = 24      # f32 ops per evaluated (pixel, key) pair in K2
 K1_FLOPS_PER_KEY = 60       # f32 ops of the edge-minimum cull per in-range key
+K3_FLOPS_PER_PAIR = 45      # f32 ops per (pixel, key) pair up to n_contrib in K3
 FOVX, FOVY = 1.2, 0.9       # bench.py's camera
 
 
@@ -92,40 +118,21 @@ def orbit_pose(angle: float, radius: float = 6.5, height: float = 0.5):
 
 
 def write_scene(scene_dir: str, model_dir: str, n: int, width: int, height: int,
-                seed: int, n_views: int = 4) -> None:
-    """A COLMAP scene (PINHOLE, `n_views` orbiting views, placeholder PNGs,
-    split.yml with the first two views as the test split) and the model's
-    refined_aligned/refined_1000.ply."""
+                seed: int, device, n_views: int = 4) -> None:
+    """A COLMAP scene (PINHOLE, `n_views` orbiting views, split.yml with the
+    first two views as the test split) and the model's
+    refined_aligned/refined_1000.ply: an `n`-gaussian SH-3 scene drawn with
+    bench.py's distribution. points3D.bin holds the same `n` centres with
+    their DC colours, and the view PNGs are that scene rendered by the port
+    on `device`, so training from the points has something to fit."""
     import yaml
     from PIL import Image
 
     from scorp_tpu_torch.core import colmap
-    from scorp_tpu_torch.core.camera import fov2focal
+    from scorp_tpu_torch.core.camera import fov2focal, make_camera
     from scorp_tpu_torch.core.plyio import GaussianData, save_gaussian_ply
-
-    os.makedirs(os.path.join(scene_dir, "images"))
-    os.makedirs(os.path.join(scene_dir, "sparse"))
-    names, images = [], {}
-    for i in range(n_views):
-        r_c2w, t_w2c = orbit_pose(2 * np.pi * i / n_views)
-        name = f"view_{i:03d}"
-        names.append(name)
-        Image.new("RGB", (width, height), (128, 128, 128)).save(
-            os.path.join(scene_dir, "images", name + ".png"))
-        images[i + 1] = colmap.ColmapImage(
-            i + 1, colmap.rotmat2qvec(r_c2w.T), t_w2c, 1, name + ".png",
-            np.zeros((0, 2)), np.zeros(0, np.int64))
-    cams = {1: colmap.ColmapCamera(1, "PINHOLE", width, height, np.array(
-        [fov2focal(FOVX, width), fov2focal(FOVY, height), width / 2, height / 2]))}
-    colmap.write_intrinsics_binary(cams, os.path.join(scene_dir, "sparse", "cameras.bin"))
-    colmap.write_extrinsics_binary(images, os.path.join(scene_dir, "sparse", "images.bin"))
-    rng = np.random.default_rng(seed + 1)
-    pts = rng.uniform(-2, 2, (256, 3))
-    colmap.write_points3D_binary(pts, rng.integers(0, 255, (256, 3), dtype=np.uint8),
-                                 np.zeros((256, 1)),
-                                 os.path.join(scene_dir, "sparse", "points3D.bin"))
-    with open(os.path.join(scene_dir, "split.yml"), "w") as f:
-        yaml.safe_dump({"train": names[2:], "test": names[:2]}, f)
+    from scorp_tpu_torch.core.sh import sh_to_rgb
+    from scorp_tpu_torch.render import render
 
     xyz, shs, scales, quats, opacity = bench_scene_arrays(n, seed)
     g = GaussianData(
@@ -134,6 +141,31 @@ def write_scene(scene_dir: str, model_dir: str, n: int, width: int, height: int,
         scaling=np.log(scales), rotation=quats,
     )
     save_gaussian_ply(os.path.join(model_dir, "refined_aligned", "refined_1000.ply"), g)
+
+    os.makedirs(os.path.join(scene_dir, "images"))
+    os.makedirs(os.path.join(scene_dir, "sparse"))
+    names, images = [], {}
+    bg = np.zeros(3, np.float32)
+    for i in range(n_views):
+        r_c2w, t_w2c = orbit_pose(2 * np.pi * i / n_views)
+        name = f"view_{i:03d}"
+        names.append(name)
+        cam = make_camera(r_c2w, t_w2c, FOVX, FOVY, width, height, device=device)
+        img = render(cam, g, bg)["render"].clamp(0.0, 1.0).cpu().numpy()
+        Image.fromarray(np.round(img.transpose(1, 2, 0) * 255).astype(np.uint8)).save(
+            os.path.join(scene_dir, "images", name + ".png"))
+        images[i + 1] = colmap.ColmapImage(
+            i + 1, colmap.rotmat2qvec(r_c2w.T), t_w2c, 1, name + ".png",
+            np.zeros((0, 2)), np.zeros(0, np.int64))
+    cams = {1: colmap.ColmapCamera(1, "PINHOLE", width, height, np.array(
+        [fov2focal(FOVX, width), fov2focal(FOVY, height), width / 2, height / 2]))}
+    colmap.write_intrinsics_binary(cams, os.path.join(scene_dir, "sparse", "cameras.bin"))
+    colmap.write_extrinsics_binary(images, os.path.join(scene_dir, "sparse", "images.bin"))
+    rgb = np.round(np.clip(sh_to_rgb(shs[:, 0]), 0, 1) * 255).astype(np.uint8)
+    colmap.write_points3D_binary(xyz, rgb, np.zeros((n, 1)),
+                                 os.path.join(scene_dir, "sparse", "points3D.bin"))
+    with open(os.path.join(scene_dir, "split.yml"), "w") as f:
+        yaml.safe_dump({"train": names[2:], "test": names[:2]}, f)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -188,7 +220,7 @@ def device_profile(fn, reps: int):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in dev) / 1e3 / reps
-    return busy, [(e.key[:70], e.self_device_time_total / 1e3 / reps) for e in dev[:8]]
+    return busy, [(e.key[:110], e.self_device_time_total / 1e3 / reps) for e in dev[:8]]
 
 
 def check(cond: bool, what: str) -> None:
@@ -273,8 +305,8 @@ def phase_full_width(args, device):
     scene_dir = os.path.join(WORK, "scene")
     model_dir = os.path.join(WORK, "model")
     t0 = time.perf_counter()
-    write_scene(scene_dir, model_dir, args.n, args.width, args.height, args.seed)
-    print(f"  wrote scene + {args.n}-gaussian PLY in {time.perf_counter() - t0:.2f} s")
+    write_scene(scene_dir, model_dir, args.n, args.width, args.height, args.seed, device)
+    print(f"  wrote scene (GT rendered by the port) + {args.n}-gaussian PLY in {time.perf_counter() - t0:.2f} s")
 
     argv = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml",
             "--not_render_baseline", "--device", str(device)]
@@ -469,6 +501,289 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     }
 
 
+def backward_inputs(prep, width: int, height: int, cfg, seed: int, device):
+    """K3's arguments as the differentiable rasterizer builds them from a
+    preprocessed scene (routing, the table's rows, K2's n_contrib and
+    t_final), with cotangents drawn from `seed`; plus K2's outputs."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster.common import grid_dims, route_stream, stream_table
+    from scorp_tpu_torch.ops.raster.composite import composite
+
+    route = route_stream(prep, width, height, cfg)
+    table = stream_table(prep)
+    data = table[route.gid].contiguous()
+    bg = torch.tensor([0.2, 0.3, 0.4], device=device)
+    tiles_x = grid_dims(width, height)[0]
+    k2_out = composite(data, route.tile_start, route.tile_count, bg, tiles_x=tiles_x,
+                       track_ncontrib=True, with_t_final=True)
+    rng = np.random.default_rng(seed)
+    n_tiles = route.tile_start.shape[0]
+    g = [torch.as_tensor(rng.normal(size=(n_tiles, c, 256)), dtype=torch.float32,
+                         device=device) for c in (3, 1, 1)]
+    args = (data, route.gid, route.tile_start, route.tile_count, bg, *g, k2_out[4],
+            k2_out[3], table.shape[0])
+    return args, tiles_x, route, k2_out
+
+
+def check_backward(args, tiles_x: int, label: str) -> float:
+    """K3 against its plain version on the same inputs: every value finite,
+    d_table within 1e-4 x the column's largest |plain| value per column
+    (the atomics add in a run-dependent order), and d_bg = sum T_final
+    g_color from K2's t_final against the plain K2's within 1e-5 relative.
+    Returns the largest absolute difference of d_table."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
+    from scorp_tpu_torch.ops.raster.composite import composite_plain
+
+    got = composite_backward(*args, tiles_x=tiles_x)
+    ref = composite_backward_plain(*args, tiles_x=tiles_x)
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all()),
+          f"K3 {label}: d_table finite ({tuple(got.shape)})")
+    diff = (got - ref).abs().amax(dim=0)
+    scale = ref.abs().amax(dim=0)
+    ratio = float((diff / torch.clamp_min(scale, 1e-30)).max())
+    check(bool((diff <= 1e-4 * scale).all()),
+          f"K3 {label}: per column max |diff| <= 1e-4 x max |plain| (worst {ratio:.3g})")
+    data, _, start, count, bg, g_color = args[:6]
+    t_plain = composite_plain(data, start, count, bg, tiles_x=tiles_x, with_t_final=True)[4]
+    d_bg = (args[8] * g_color).sum(dim=(0, 2))
+    d_bg_plain = (t_plain * g_color).sum(dim=(0, 2))
+    err = float((d_bg - d_bg_plain).abs().max())
+    check(err <= 1e-5 * float(d_bg_plain.abs().max()) and bool(torch.isfinite(d_bg).all()),
+          f"d_bg {label}: from K2's t_final within 1e-5 relative of the plain K2's ({err:.3g})")
+    return float(diff.max())
+
+
+def phase_backward_parity(args, device):
+    """Phase 5: K3 against its plain version at 50k / 800x600, and a small
+    rasterize backward on the GPU against the CPU plain path."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster import RasterConfig, rasterize
+
+    w, h = args.mid_width, args.mid_height
+    prep = prep_of(bench_scene_arrays(args.mid_n, args.seed), device_camera(w, h, device),
+                   device)
+    k3_args, tiles_x, _, _ = backward_inputs(prep, w, h, RasterConfig(max_keys=1 << 19),
+                                             args.seed + 3, device)
+    k3_err = check_backward(k3_args, tiles_x, "mid")
+
+    w, h = 128, 96
+    arrays = bench_scene_arrays(2000, args.seed + 7)
+    target = np.random.default_rng(args.seed).uniform(0, 1, (3, h, w)).astype(np.float32)
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        xyz, shs, scales, quats, opacity = (torch.as_tensor(a, device=dev).requires_grad_(True)
+                                            for a in arrays)
+        bg = torch.zeros(3, device=dev, requires_grad=True)
+        out = rasterize(xyz, opacity, device_camera(w, h, dev), bg, shs=shs, sh_degree=3,
+                        scales=scales, quats=quats, cfg=RasterConfig(max_keys=1 << 16))
+        loss = ((out.color - torch.as_tensor(target, device=dev)) ** 2).mean() \
+            + 0.1 * out.alpha.mean() + 0.01 * out.depth_accum.mean()
+        grads.append([x.cpu() for x in torch.autograd.grad(
+            loss, [xyz, shs, scales, quats, opacity, bg])])
+    for name, a, b in zip(("xyz", "shs", "scales", "quats", "opacity", "bg"), *grads):
+        scale = max(float(b.abs().max()), 1e-12)
+        mx = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()) and mx <= 1e-4 * scale,
+              f"rasterize backward GPU vs CPU plain path, d{name}: max |diff| {mx:.3g} "
+              f"<= 1e-4 x {scale:.3g}")
+    return k3_err
+
+
+def phase_train_app(args, device, scene_dir):
+    """Phase 6: the training main path, apps.train_3dgs on cuda from the
+    scene's points3D.bin, with launch counters."""
+    import torch
+
+    from scorp_tpu_torch.apps import train_3dgs
+    from scorp_tpu_torch.core.plyio import load_gaussian_ply
+    from scorp_tpu_torch.ops.raster.backward import composite_backward
+    from scorp_tpu_torch.ops.raster.composite import composite
+    from scorp_tpu_torch.ops.raster.expand import expand_keys
+
+    model_dir = os.path.join(WORK, "train_model")
+    iters = args.train_iters
+    # opacity_cull 0.005 is the original 3DGS value: this repo's default
+    # (0.6) prunes every point still at its initial opacity 0.1, which after
+    # a few iterations is all of them, so nothing would be left to split
+    argv = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml",
+            "--iterations", str(iters), "--densify_from_iter", "10",
+            "--densification_interval", "10", "--densify_until_iter", str(iters),
+            "--test_iterations", "1", str(iters), "--save_iterations", str(iters),
+            "--opacity_cull", "0.005", "--device", str(device)]
+    expand_keys.launches = composite.launches = composite_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, adam, log = train_3dgs.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"expand": expand_keys.launches, "composite": composite.launches,
+                "backward": composite_backward.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = log["loss"]
+    n_alive = int(state.num_alive())
+    print(f"  app wall {wall:.3f} s for {iters} iterations; peak device memory "
+          f"{peak / 2**20:.1f} MiB; launches {launches}")
+    print(f"  loss first {losses[0]:.6f}, last {losses[-1]:.6f}; alive {n_alive} of "
+          f"capacity {state.capacity}; capacity changes {log['capacity']}; "
+          f"raster regrows {log['raster_keys']}; dropped keys per iteration "
+          f"{log['dropped_keys']}")
+    check(launches["expand"] > 0 and launches["composite"] > 0 and launches["backward"] > 0,
+          "K1, K2 and K3 launched on the training path")
+    check(launches["backward"] >= iters, f"K3 launched once per step ({launches['backward']})")
+    check(len(losses) == iters and all(np.isfinite(losses)), "every step's loss is finite")
+    for it, res in log["eval"]:
+        print(f"  eval after iteration {it}: " + ", ".join(
+            f"{name} L1 {l1:.5f} PSNR {p:.3f}" for name, (l1, p) in res.items()))
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values())
+          and all(bool(torch.isfinite(v).all()) for v in (*adam.m.values(), *adam.v.values())),
+          "no NaN or inf in the parameters and moments")
+    check(len(log["capacity"]) > 0 and n_alive != args.n,
+          f"densification ran and the capacity grew ({args.n} -> {n_alive} alive)")
+    dropped = log["dropped_keys"]
+    check(dropped[-1] == 0 and all(dropped[i + 1] == 0 for i in range(iters - 1) if dropped[i]),
+          "no keys dropped at the last step nor after any raster regrow")
+    ply = os.path.join(model_dir, "point_cloud", f"iteration_{iters}", "point_cloud.ply")
+    g = load_gaussian_ply(ply, max_sh_degree=3)
+    check(g.n == n_alive and bool(np.isfinite(g.xyz).all()),
+          f"iteration_{iters}/point_cloud.ply written and loads back ({g.n} gaussians)")
+    return launches, {"wall_s": wall, "loss_first": losses[0], "loss_last": losses[-1],
+                      "alive": n_alive, "peak_mib": peak / 2**20, "eval": log["eval"]}
+
+
+def phase_train_step(args, device):
+    """Phase 7: one train_step at full width (bench.py's training
+    measurement): times, ops, device busy time and peak memory; K3 against
+    its plain version on the step's inputs, and K3's times."""
+    import torch
+
+    from scorp_tpu_torch.core.plyio import GaussianData
+    from scorp_tpu_torch.ops.losses import l1_loss, ssim
+    from scorp_tpu_torch.ops.raster import preprocess
+    from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
+    from scorp_tpu_torch.ops.raster.composite import composite
+    from scorp_tpu_torch.render import tuned_raster_config
+    from scorp_tpu_torch.train import OptParams, from_gaussian_data, init_adam, train_step
+
+    w, h = args.width, args.height
+    xyz, shs, scales, quats, opacity = bench_scene_arrays(args.n, args.seed)
+    g = GaussianData(xyz=xyz, f_dc=shs[:, :1], f_rest=shs[:, 1:],
+                     opacity=np.log(opacity / (1.0 - opacity))[:, None].astype(np.float32),
+                     scaling=np.log(scales), rotation=quats)
+    state = from_gaussian_data(g, device=device)
+    adam = init_adam(state)
+    cam = device_camera(w, h, device)
+    gt = torch.as_tensor(np.random.default_rng(args.seed).uniform(0, 1, (3, h, w)),
+                         dtype=torch.float32, device=device)
+    zeros = torch.zeros(1, h, w, device=device)
+    bg = torch.zeros(3, device=device)
+    cfg = tuned_raster_config(args.n, max_keys=(1 << 20) + (1 << 19) + (1 << 18),
+                              stream_keys=(1 << 20) + (1 << 19))
+    opt = OptParams()
+
+    def step(hook=None):
+        return train_step(state, adam, cam, gt, zeros, zeros, 1000, bg, opt=opt,
+                          sh_degree=3, cfg=cfg, stage_hook=hook)
+
+    first = step()[2]
+    check(int(first.num_dropped_keys) == 0, "first step: no dropped keys")
+    composite_backward.launches = composite.launches = 0
+    last = step()[2]
+    per_step = {"K2": composite.launches, "K3": composite_backward.launches}
+    check(int(last.num_dropped_keys) == 0 and bool(torch.isfinite(last.loss)),
+          f"last step: no dropped keys, loss {float(last.loss):.6f} finite")
+
+    # the step and its three parts between CUDA events: medians of 10 steps
+    # after one warm-up step
+    parts = {"forward": [], "backward": [], "adam + statistics": []}
+    totals = []
+    for _ in range(11):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        step(lambda stage, ev=ev: ev[1 if stage == "forward" else 2].record())
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(parts):
+            parts[name].append(ev[i].elapsed_time(ev[i + 1]))
+        totals.append(ev[0].elapsed_time(ev[3]))
+    step_ms = statistics.median(totals[1:])
+    parts = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    ops = dispatched_ops(step)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    busy_ms, top = device_profile(step, 5)
+    print(f"  train_step: {step_ms:.3f} ms (CUDA-event median of 10 after a warm-up; "
+          f"fastest {min(totals[1:]):.3f}, slowest {max(totals[1:]):.3f}); parts "
+          + json.dumps({k: round(v, 4) for k, v in parts.items()}))
+    print(f"  ATen ops dispatched per step: {ops}; peak device memory {peak / 2**20:.1f} MiB; "
+          f"launches per step {per_step}")
+    if top:
+        print(f"  device busy per step (torch.profiler, 5 steps): {busy_ms:.3f} ms of a "
+              f"{step_ms:.3f} ms step -> idle share {1 - busy_ms / step_ms:.3f}")
+        for name, ms in top:
+            print(f"    {ms:8.4f} ms  {name}")
+    else:
+        print("  device busy per step: not measured (the trace held no CUDA events)")
+
+    # the loss alone: L1 + SSIM forward and backward on a rendered-size image
+    image = torch.rand(3, h, w, device=device, requires_grad=True)
+
+    def loss_fn():
+        loss = (1.0 - opt.lambda_dssim) * l1_loss(image, gt) \
+            + opt.lambda_dssim * (1.0 - ssim(image, gt))
+        return torch.autograd.grad(loss, image)
+
+    loss_ms = cuda_ms(loss_fn, 10)
+    loss_busy, _ = device_profile(loss_fn, 5)
+    print(f"  L1 + SSIM forward + backward alone: {loss_ms:.3f} ms (CUDA-event median of 10), "
+          f"device busy {loss_busy:.3f} ms, {dispatched_ops(loss_fn)} ATen ops")
+
+    # K3 on the step's own inputs (the routing of the step's forward)
+    p = state.params
+    with torch.no_grad():
+        prep = preprocess(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
+                          shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
+                          scales=torch.exp(p["scaling"]), quats=p["rotation"],
+                          alive=state.alive)
+        k3_args, tiles_x, route, k2_out = backward_inputs(prep, w, h, cfg, args.seed + 5,
+                                                          device)
+        k3_err = check_backward(k3_args, tiles_x, "full width")
+        k3_ms = cuda_ms(lambda: composite_backward(*k3_args, tiles_x=tiles_x), 20)
+        k3_plain_ms = cuda_ms(lambda: composite_backward_plain(*k3_args, tiles_x=tiles_x), 1)
+        k2_args = (k3_args[0], *k3_args[2:5])  # data, tile_start, tile_count, bg
+        k2_train_ms = cuda_ms(lambda: composite(*k2_args, tiles_x=tiles_x, track_ncontrib=True,
+                                                with_t_final=True), 20)
+        nc = k2_out[3][:, 0].to(torch.int64)                                # [T, 256]
+        count = route.tile_count.to(torch.int64)[:, None]
+        pairs = int(torch.minimum(nc, count).sum())
+        # (warp, key) pairs a warp walks: up to the warp's largest n_contrib
+        warp_keys = int(torch.minimum(nc.view(-1, 8, 32).amax(dim=2), count).sum())
+        streamed = int(route.tile_count.to(torch.int64).sum())
+    n_tiles, n_rows = route.tile_start.shape[0], k3_args[-1]
+    atomics = 10 * warp_keys
+    k3_ops = pairs * K3_FLOPS_PER_PAIR + atomics
+    k3_bytes = streamed * 44 + n_tiles * 8 + 12 + n_tiles * 256 * 28 + n_rows * 40
+    k3_bytes_s, k3_ops_s = k3_bytes / HBM_BYTES_PER_S, k3_ops / F32_FLOPS_PER_S
+    print(f"  K3: {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound "
+          f"{1e3 * max(k3_bytes_s, k3_ops_s):.4f} ms ({streamed} streamed keys, {pairs} "
+          f"(pixel, key) pairs up to n_contrib, {atomics} atomic adds at most = "
+          f"{100 * atomics / k3_ops:.2f}% of its operations, {n_rows} table rows)")
+    print(f"  K2 with n_contrib and t_final (the training forward): {k2_train_ms:.4f} ms")
+    return {
+        "step_ms": step_ms, "parts": parts, "ops": ops, "busy_ms": busy_ms if top else None,
+        "loss_ms": loss_ms, "loss_busy_ms": loss_busy,
+        "peak_mib": peak / 2**20, "per_step": per_step, "k2_train_ms": k2_train_ms,
+        "k3": dict(ms=k3_ms, plain_ms=k3_plain_ms, err=k3_err,
+                   bound_ms=1e3 * max(k3_bytes_s, k3_ops_s),
+                   bound_by="bytes" if k3_bytes_s >= k3_ops_s else "operations"),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -478,6 +793,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mid_n", type=int, default=50_000)
     ap.add_argument("--mid_width", type=int, default=800)
     ap.add_argument("--mid_height", type=int, default=600)
+    ap.add_argument("--train_iters", type=int, default=30)
     args = ap.parse_args(argv)
 
     import torch
@@ -489,6 +805,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     import scorp_tpu_torch  # noqa: F401  (fails when run outside the repository)
     from scorp_tpu_torch.ops.raster import _build
+    from scorp_tpu_torch.ops.raster.backward import REPLACES as K3_REPLACES
+    from scorp_tpu_torch.ops.raster.backward import SOURCE as K3_SOURCE
     from scorp_tpu_torch.ops.raster.composite import REPLACES as K2_REPLACES
     from scorp_tpu_torch.ops.raster.composite import SOURCE as K2_SOURCE
     from scorp_tpu_torch.ops.raster.expand import REPLACES as K1_REPLACES
@@ -519,22 +837,45 @@ def main(argv=None) -> int:
 
     print("[4] full-width kernel checks and times")
     full = phase_full_kernels(args, device, scene_dir, model_dir)
-    shutil.rmtree(WORK, ignore_errors=True)
     k1_err = max(k1_err, full["k1"]["err"])
     k2_err = max(k2_err, full["k2"]["err"])
+    torch.cuda.empty_cache()
+
+    print(f"[5] K3 vs its plain version at {args.mid_n} / {args.mid_width}x{args.mid_height}; "
+          "rasterize backward GPU vs CPU")
+    k3_err = phase_backward_parity(args, device)
+
+    print(f"[6] training: {args.n} points, {args.width}x{args.height}, train_3dgs, "
+          f"{args.train_iters} iterations")
+    train_launches, train = phase_train_app(args, device, scene_dir)
+    torch.cuda.empty_cache()
+
+    print(f"[7] train_step at full width: {args.n} gaussians, {args.width}x{args.height}")
+    step = phase_train_step(args, device)
+    shutil.rmtree(WORK, ignore_errors=True)
+    k3_err = max(k3_err, step["k3"]["err"])
 
     kernels = [
         {"name": "K1 expand_keys", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": launches["expand"],
+         "replaces": K1_REPLACES, "launches": train_launches["expand"],
+         "launches_eval": launches["expand"],
          "max_abs_err": k1_err, "max_abs_diff": k1_err, **{
              k: full["k1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "kept": full["k1"]["kept"], "kept_golden": full["k1"]["golden"]},
         {"name": "K2 composite", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": launches["composite"],
+         "replaces": K2_REPLACES, "launches": train_launches["composite"],
+         "launches_eval": launches["composite"],
          "max_abs_err": k2_err, "max_abs_diff": k2_err, **{
              k: full["k2"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "ms_train": step["k2_train_ms"], "library_ms": None},
+        {"name": "K3 composite_backward", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": train_launches["backward"],
+         "max_abs_err": k3_err, **{
+             k: step["k3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
     ]
+    print(f"  training app: loss {train['loss_first']:.6f} -> {train['loss_last']:.6f}, "
+          f"{train['wall_s']:.2f} s; train_step {step['step_ms']:.3f} ms")
     print(f"  total {time.perf_counter() - t_start:.1f} s; frame {full['frame_ms']:.3f} ms")
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """Config / CLI system, a copy of the parts of `scorp_tpu.config` that
-rendering needs (kept here so the port imports nothing of the JAX package).
+rendering and 3DGS training need (kept here so the port imports nothing of
+the JAX package).
 
   1. param groups whose attributes become argparse flags, with the
      `shorthand` metadata registering a one-letter alias;
@@ -7,7 +8,8 @@ rendering needs (kept here so the port imports nothing of the JAX package).
      dir, eval tools merge it with the CLI — parsed with an ast-based safe
      parser instead of eval().
 
-Defaults match the original 3DGS ModelParams / PipelineParams exactly.
+Defaults match the original 3DGS ModelParams / PipelineParams /
+OptimizationParams exactly.
 """
 
 from __future__ import annotations
@@ -72,6 +74,42 @@ class PipelineParams(ParamGroup):
     convert_SHs_python: bool = False
     compute_cov3D_python: bool = False
     debug: bool = False
+
+
+@dataclass
+class OptimizationParams(ParamGroup):
+    random_background: bool = True
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    lambda_normal: float = 0.05
+    lambda_depth_sensor: float = 1.5
+    lambda_isotropic: float = 0.0005
+    opacity_cull: float = 0.6
+    max_screen_size: float = 0.5
+    depth_from_iter: int = 7000
+    dn_l1_weight_init: float = 0.25
+    dn_l1_weight_final: float = 0.075
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 25_000
+    densify_grad_threshold: float = 0.0002
+
+
+def save_cfg_args(model_path: str, args: Namespace):
+    """Dump the merged namespace as `cfg_args` (reference-compatible repr)."""
+    os.makedirs(model_path, exist_ok=True)
+    with open(os.path.join(model_path, "cfg_args"), "w") as f:
+        f.write(str(Namespace(**vars(args))))
 
 
 def parse_namespace_repr(text: str) -> Namespace:

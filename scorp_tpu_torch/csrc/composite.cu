@@ -9,7 +9,10 @@
 // tile_start/tile_count, and bg[3]. Output per tile t and pixel p (row-major
 // in the 16x16 tile): color[t][c][p] = sum w c + T bg, depth[t][0][p] =
 // sum w z, alpha[t][0][p] = 1 - T and, if n_contrib is non-null, the
-// 1-based stream position of the last included key.
+// 1-based stream position of the last included key; if t_final is non-null,
+// the final transmittance T itself (the CUDA reference's final_T: the
+// backward kernel K3 rebuilds every T_before by division from it, and
+// 1 - alpha would lose its relative precision once T nears the 1e-4 stop).
 //
 // Numerics (as the JAX package): alpha = min(0.99, exp2(lopa - (u^2+v^2)/2));
 // alpha < 1/255 is skipped; a key is included iff T (1 - alpha) >= 1e-4,
@@ -45,7 +48,8 @@ __global__ void __launch_bounds__(kPix) composite_kernel(
     const float* __restrict__ data, const int* __restrict__ tile_start,
     const int* __restrict__ tile_count, const float* __restrict__ bg, int tiles_x,
     float* __restrict__ out_color, float* __restrict__ out_depth,
-    float* __restrict__ out_alpha, int* __restrict__ out_ncontrib) {
+    float* __restrict__ out_alpha, int* __restrict__ out_ncontrib,
+    float* __restrict__ out_tfinal) {
   __shared__ float s_keys[kPix * kRows];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -95,6 +99,7 @@ __global__ void __launch_bounds__(kPix) composite_kernel(
   out_depth[p] = dep;
   out_alpha[p] = 1.0f - trans;
   if (out_ncontrib != nullptr) out_ncontrib[p] = last;
+  if (out_tfinal != nullptr) out_tfinal[p] = trans;
 }
 
 }  // namespace
@@ -102,10 +107,11 @@ __global__ void __launch_bounds__(kPix) composite_kernel(
 extern "C" int scorp_composite(const void* data, const void* tile_start,
                                const void* tile_count, const void* bg, int num_tiles,
                                int tiles_x, void* out_color, void* out_depth,
-                               void* out_alpha, void* out_ncontrib, void* stream) {
+                               void* out_alpha, void* out_ncontrib, void* out_tfinal,
+                               void* stream) {
   composite_kernel<<<num_tiles, kPix, 0, (cudaStream_t)stream>>>(
       (const float*)data, (const int*)tile_start, (const int*)tile_count,
       (const float*)bg, tiles_x, (float*)out_color, (float*)out_depth,
-      (float*)out_alpha, (int*)out_ncontrib);
+      (float*)out_alpha, (int*)out_ncontrib, (float*)out_tfinal);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,17 @@
-"""Tile-based Gaussian rasterizer (forward only in this slice).
+"""Tile-based Gaussian rasterizer, differentiable.
 
 `rasterize` runs preprocess -> key expansion (K1) + int64 sort -> stream
 gather -> forward compositor (K2). It dispatches on the tensors' device:
 the kernel wrappers launch the CUDA kernels for CUDA tensors and run their
-plain PyTorch versions for CPU tensors. The differentiable path (an
-autograd.Function with the backward kernel) comes with the training slice.
+plain PyTorch versions for CPU tensors.
+
+When an input requires grad, preprocess is recorded by autograd, the
+routing runs under no_grad on the detached result, and `_Composite` (a
+`torch.autograd.Function`) takes the per-gaussian table [N, 10]: its
+forward gathers the stream rows and runs K2 with n_contrib and t_final,
+its backward runs K3, which adds each stream row's gradient onto its
+gaussian's table row, and d_bg = Σ T_final·g_color. Autograd then carries
+the table's gradient back through conic_chol, log2_opacity and preprocess.
 """
 
 from __future__ import annotations
@@ -14,14 +21,18 @@ from typing import NamedTuple
 import torch
 
 from ...core.camera import Camera
+from .backward import composite_backward
 from .common import (  # noqa: F401
     TILE,
     Preprocessed,
     RasterConfig,
     StreamBins,
+    StreamRouting,
     bin_stream,
     grid_dims,
     preprocess,
+    route_stream,
+    stream_table,
     tiles_cp_to_image,
 )
 from .composite import composite
@@ -34,6 +45,36 @@ class RasterOutput(NamedTuple):
     radii: torch.Tensor        # [N] int32
     num_dropped_keys: torch.Tensor  # [] keys that did not fit the capacities
     num_dropped_tail: torch.Tensor  # [] always 0: there are no per-tile lists
+
+
+class _Composite(torch.autograd.Function):
+    """(table [N,10], routing, bg) -> tile images (color, depth, alpha)."""
+
+    @staticmethod
+    def forward(ctx, table, gid, tile_start, tile_count, bg, tiles_x):
+        data = table[gid].contiguous()
+        color, depth, alpha, n_contrib, t_final = composite(
+            data, tile_start, tile_count, bg, tiles_x=tiles_x,
+            track_ncontrib=True, with_t_final=True,
+        )
+        ctx.save_for_backward(data, gid, tile_start, tile_count, bg, t_final, n_contrib)
+        ctx.n_rows, ctx.tiles_x = table.shape[0], tiles_x
+        return color, depth, alpha
+
+    @staticmethod
+    def backward(ctx, g_color, g_depth, g_alpha):
+        data, gid, tile_start, tile_count, bg, t_final, n_contrib = ctx.saved_tensors
+        # unused outputs arrive as zeros (autograd materializes them)
+        g_color, g_depth, g_alpha = (g.contiguous() for g in (g_color, g_depth, g_alpha))
+        d_table = d_bg = None
+        if ctx.needs_input_grad[0]:
+            d_table = composite_backward(
+                data, gid, tile_start, tile_count, bg, g_color, g_depth, g_alpha,
+                t_final, n_contrib, ctx.n_rows, tiles_x=ctx.tiles_x,
+            )
+        if ctx.needs_input_grad[4]:
+            d_bg = (t_final * g_color).sum(dim=(0, 2))
+        return d_table, None, None, None, d_bg, None
 
 
 def rasterize(
@@ -49,40 +90,50 @@ def rasterize(
     quats: torch.Tensor | None = None,
     cov3d_precomp: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
+    screen_deltas: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     cfg: RasterConfig = RasterConfig(),
 ) -> RasterOutput:
-    """Forward rasterization (the eval path of `scorp_tpu`'s
-    `rasterize_pallas_fwd_only`). Every tensor must lie on one device, the
-    camera's; none may require grad (gradients come with the training
-    slice)."""
+    """Rasterize on the camera's device (the counterpart of `scorp_tpu`'s
+    `rasterize_pallas`); every tensor must lie on that device. Without any
+    input that requires grad this is the eval path: nothing is saved for a
+    backward and no n_contrib is tracked."""
     tensors = [means3d, opacities, bg, shs, colors_precomp, scales, quats,
-               cov3d_precomp, alive]
-    if any(t is not None and t.requires_grad for t in tensors):
-        raise ValueError("rasterize is forward-only: no input may require grad")
+               cov3d_precomp, screen_deltas, alive]
     dev = cam.device
     for t in tensors:
         if t is not None and t.device != dev:
             raise ValueError(f"input on {t.device}, but the camera is on {dev}")
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
     w, h = cam.width, cam.height
-    with torch.no_grad():
+    tiles_x = grid_dims(w, h)[0]
+    with torch.set_grad_enabled(needs_grad):
         prep = preprocess(
             means3d, opacities, cam,
             shs=shs, sh_degree=sh_degree, colors_precomp=colors_precomp,
             scales=scales, quats=quats, cov3d_precomp=cov3d_precomp,
-            scale_modifier=scale_modifier, alive=alive,
+            scale_modifier=scale_modifier, screen_deltas=screen_deltas, alive=alive,
         )
-        bins = bin_stream(prep, w, h, cfg)
-        color_t, depth_t, alpha_t, _ = composite(
-            bins.data, bins.tile_start, bins.tile_count,
-            bg.to(torch.float32).contiguous(), tiles_x=grid_dims(w, h)[0],
-        )
-        return RasterOutput(
-            tiles_cp_to_image(color_t, w, h),
-            tiles_cp_to_image(depth_t, w, h),
-            tiles_cp_to_image(alpha_t, w, h),
-            prep.radii,
-            bins.num_dropped_keys,
-            torch.zeros((), dtype=torch.int64, device=dev),
-        )
+    bg = bg.to(torch.float32).contiguous()
+    if needs_grad:
+        with torch.no_grad():
+            route = route_stream(prep, w, h, cfg)
+        color_t, depth_t, alpha_t = _Composite.apply(
+            stream_table(prep), route.gid, route.tile_start, route.tile_count, bg, tiles_x)
+        dropped = route.num_dropped_keys
+    else:
+        with torch.no_grad():
+            bins = bin_stream(prep, w, h, cfg)
+            color_t, depth_t, alpha_t, _ = composite(
+                bins.data, bins.tile_start, bins.tile_count, bg, tiles_x=tiles_x)
+        dropped = bins.num_dropped_keys
+    return RasterOutput(
+        tiles_cp_to_image(color_t, w, h),
+        tiles_cp_to_image(depth_t, w, h),
+        tiles_cp_to_image(alpha_t, w, h),
+        prep.radii,
+        dropped,
+        torch.zeros((), dtype=torch.int64, device=dev),
+    )

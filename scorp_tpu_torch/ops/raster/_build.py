@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 # C entry point and argument kinds of each source: p = pointer/stream, i = int
 SIGNATURES = {
     "expand": ("scorp_expand_keys", "ppppiiiiippp"),
-    "composite": ("scorp_composite", "ppppiippppp"),
+    "composite": ("scorp_composite", "ppppiipppppp"),
+    "backward": ("scorp_composite_backward", "pppppppppppiip"),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -19,7 +19,10 @@ binning — instead of atomic key duplication + per-key radix sort:
   4. per-tile ranges come from a searchsorted over the sorted tile ids.
 
 The stream form (per-key rows [K, 10] + per-tile start/count) feeds the
-forward compositor (kernel K2, `composite.py`).
+forward compositor (kernel K2, `composite.py`); `route_stream` gives the
+integer routing alone (the gaussian row of every stream slot), which the
+differentiable rasterizer uses to gather the table in the forward and to
+scatter its gradient in the backward (kernel K3, `backward.py`).
 
 `_expand_keys_core` is the expansion golden: the same routing as K1, with
 the JAX package's cull arithmetic (rect-relative 1/32 px fixed-point
@@ -71,6 +74,16 @@ class Preprocessed(NamedTuple):
     radii: torch.Tensor     # [N] int32 reference screen radius (0 = culled)
     rect: torch.Tensor      # [N,4] int32 binning tile rect (x0, y0, x1, y1), half-open
     valid: torch.Tensor     # [N] bool (has at least one binning tile)
+
+
+class StreamRouting(NamedTuple):
+    """Integer routing of the per-tile key stream: slot k of the stream
+    holds the row gid[k] of the per-gaussian table (`stream_table`)."""
+
+    gid: torch.Tensor          # [K2] int32 gaussian row of each stream slot
+    tile_start: torch.Tensor   # [num_tiles] int32 offsets into the stream
+    tile_count: torch.Tensor   # [num_tiles] int32
+    num_dropped_keys: torch.Tensor  # [] int64
 
 
 class StreamBins(NamedTuple):
@@ -137,9 +150,14 @@ def preprocess(
     quats: torch.Tensor | None = None,
     cov3d_precomp: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
+    screen_deltas: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
 ) -> Preprocessed:
-    """Vectorized per-Gaussian projection/culling/color stage."""
+    """Vectorized per-Gaussian projection/culling/color stage.
+
+    `screen_deltas` [N,2] is added to the projected NDC position (the
+    reference's `screenspace_points` trick): its gradient is the NDC-scaled
+    means2D gradient that densification reads."""
     n = means3d.shape[0]
     w, h = cam.width, cam.height
     tiles_x, tiles_y = grid_dims(w, h)
@@ -159,6 +177,9 @@ def preprocess(
     ndc_y = clip_y * p_w
     in_front = depth > 0.2
 
+    if screen_deltas is not None:
+        ndc_x = ndc_x + screen_deltas[:, 0]
+        ndc_y = ndc_y + screen_deltas[:, 1]
     # ndc2Pix: ((v + 1) * S - 1) * 0.5
     pix_x = (ndc_x + 1.0) * (w * 0.5) - 0.5
     pix_y = (ndc_y + 1.0) * (h * 0.5) - 0.5
@@ -472,10 +493,12 @@ def stream_table(prep: Preprocessed) -> torch.Tensor:
     )
 
 
-def bin_stream(prep: Preprocessed, width: int, height: int,
-               cfg: RasterConfig) -> StreamBins:
-    """Stream binning for the forward compositor: expansion + sort, then ONE
-    row gather of the depth-ordered per-gaussian table by the sorted keys."""
+def route_stream(prep: Preprocessed, width: int, height: int,
+                 cfg: RasterConfig) -> StreamRouting:
+    """Expansion + sort -> the gaussian row of every stream slot and the
+    per-tile ranges. Integer work only: the training path runs it under
+    no_grad on the detached prep, as the JAX package stops gradients at its
+    routing (`pallas.py:324`)."""
     tiles_x, tiles_y = grid_dims(width, height)
     num_tiles = tiles_x * tiles_y
     k_cap = cfg.max_keys
@@ -485,12 +508,21 @@ def bin_stream(prep: Preprocessed, width: int, height: int,
         prep, width, height, k_cap, cull=True
     )
     # culled + out-of-range keys sort past every live key, so slicing to
-    # the post-cull capacity is the compaction
-    sorted_tile = sorted_tile[:k2]
-    data = stream_table(prep)[order][g_sorted[:k2]].contiguous()
-    tile_start, tile_count = _tile_bounds(sorted_tile, num_tiles)
+    # the post-cull capacity is the compaction; their slots get a valid but
+    # meaningless row that no tile range reaches
+    gid = order[g_sorted[:k2]].to(torch.int32)
+    tile_start, tile_count = _tile_bounds(sorted_tile[:k2], num_tiles)
     dropped = torch.clamp_min(total - k_cap, 0) + torch.clamp_min(kept - k2, 0)
-    return StreamBins(data, tile_start, tile_count, dropped)
+    return StreamRouting(gid, tile_start, tile_count, dropped)
+
+
+def bin_stream(prep: Preprocessed, width: int, height: int,
+               cfg: RasterConfig) -> StreamBins:
+    """Stream binning for the forward compositor: the routing, then ONE
+    row gather of the per-gaussian table by the stream's gaussian rows."""
+    r = route_stream(prep, width, height, cfg)
+    data = stream_table(prep)[r.gid].contiguous()
+    return StreamBins(data, r.tile_start, r.tile_count, r.num_dropped_keys)
 
 
 def tiles_cp_to_image(tile_img: torch.Tensor, width: int, height: int) -> torch.Tensor:

@@ -12,7 +12,8 @@ with alpha < 1/255 are skipped; a key is included iff T·(1-alpha) >= 1e-4
 and no earlier key of the pixel crossed that threshold (the crossing key is
 excluded and the pixel is done). Outputs per tile: color + T·bg, Σw·z,
 alpha = 1 - T and, when asked, n_contrib = the 1-based stream position
-(from the tile start) of the last included key.
+(from the tile start) of the last included key and t_final = T itself, the
+residual the backward compositor (K3, `backward.py`) walks back from.
 """
 
 from __future__ import annotations
@@ -28,25 +29,34 @@ PIXELS = TILE * TILE
 PLAIN_CHUNK = 32  # keys per vectorized alpha evaluation in composite_plain
 
 
+def pixel_coords(n_tiles: int, tiles_x: int, dtype, device):
+    """[T, 256] pixel x and y of every tile's pixels, row-major in the tile."""
+    t = torch.arange(n_tiles, device=device)
+    pix = torch.arange(PIXELS, device=device)
+    px = ((t % tiles_x)[:, None] * TILE + pix % TILE).to(dtype)
+    py = ((t // tiles_x)[:, None] * TILE + pix // TILE).to(dtype)
+    return px, py
+
+
 def composite_plain(data: torch.Tensor, tile_start: torch.Tensor,
                     tile_count: torch.Tensor, bg: torch.Tensor, *, tiles_x: int,
-                    track_ncontrib: bool = False):
+                    track_ncontrib: bool = False, with_t_final: bool = False):
     """Plain PyTorch version of the kernel, same arguments and outputs.
     Alphas are evaluated for a chunk of keys of every tile at once; the
-    transmittance then advances key by key, in the kernel's order."""
-    dev = data.device
+    transmittance then advances key by key, in the kernel's order. It
+    computes in `data`'s dtype (float64 serves as a reference), and autograd
+    runs through it; its gradient stops at the 0.99 clamp, where K3's passes
+    through (the two agree wherever no alpha is clamped)."""
+    dev, dt = data.device, data.dtype
     n_tiles = tile_start.shape[0]
-    t = torch.arange(n_tiles, device=dev)
-    pix = torch.arange(PIXELS, device=dev)
-    px = ((t % tiles_x)[:, None] * TILE + pix % TILE).to(torch.float32)  # [T, P]
-    py = ((t // tiles_x)[:, None] * TILE + pix // TILE).to(torch.float32)
+    px, py = pixel_coords(n_tiles, tiles_x, dt, dev)                      # [T, P]
 
-    trans = torch.ones(n_tiles, PIXELS, device=dev)
+    trans = torch.ones(n_tiles, PIXELS, dtype=dt, device=dev)
     done = torch.zeros(n_tiles, PIXELS, dtype=torch.bool, device=dev)
-    acc = torch.zeros(n_tiles, 3, PIXELS, device=dev)
-    acc_d = torch.zeros(n_tiles, PIXELS, device=dev)
+    acc = torch.zeros(n_tiles, 3, PIXELS, dtype=dt, device=dev)
+    acc_d = torch.zeros(n_tiles, PIXELS, dtype=dt, device=dev)
     last = torch.zeros(n_tiles, PIXELS, dtype=torch.int32, device=dev)
-    zero = torch.zeros((), device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
 
     max_count = int(tile_count.max()) if n_tiles else 0
     for c0 in range(0, max_count, PLAIN_CHUNK):
@@ -77,23 +87,27 @@ def composite_plain(data: torch.Tensor, tile_start: torch.Tensor,
             break
 
     color = acc + trans[:, None, :] * bg[None, :, None]
-    return (color, acc_d[:, None], (1.0 - trans)[:, None],
-            last[:, None] if track_ncontrib else None)
+    out = (color, acc_d[:, None], (1.0 - trans)[:, None],
+           last[:, None] if track_ncontrib else None)
+    return out + (trans[:, None],) if with_t_final else out
 
 
 def composite(data: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
-              bg: torch.Tensor, *, tiles_x: int, track_ncontrib: bool = False):
+              bg: torch.Tensor, *, tiles_x: int, track_ncontrib: bool = False,
+              with_t_final: bool = False):
     """K2 wrapper: launches the CUDA kernel for CUDA tensors (and raises if
     that fails); runs `composite_plain` for CPU tensors.
 
     data [K, 10] f32 stream rows; tile_start/tile_count [T] int32; bg [3]
     f32. Returns (color [T,3,256], depth [T,1,256], alpha [T,1,256],
-    n_contrib [T,1,256] int32 or None) with pixels row-major in each tile.
+    n_contrib [T,1,256] int32 or None) with pixels row-major in each tile,
+    and with `with_t_final` a fifth output, the final transmittance
+    [T,1,256] f32.
     """
     dev = data.device
     if dev.type == "cpu":
         return composite_plain(data, tile_start, tile_count, bg, tiles_x=tiles_x,
-                               track_ncontrib=track_ncontrib)
+                               track_ncontrib=track_ncontrib, with_t_final=with_t_final)
     if dev.type != "cuda":
         raise ValueError(f"composite supports cpu and cuda tensors, not {dev}")
     n_tiles = tile_start.shape[0]
@@ -110,18 +124,21 @@ def composite(data: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Te
     alpha = torch.empty(n_tiles, 1, PIXELS, device=dev)
     n_contrib = (torch.empty(n_tiles, 1, PIXELS, dtype=torch.int32, device=dev)
                  if track_ncontrib else None)
+    t_final = torch.empty(n_tiles, 1, PIXELS, device=dev) if with_t_final else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.scorp_composite(
             data.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             bg.data_ptr(), n_tiles, tiles_x,
             color.data_ptr(), depth.data_ptr(), alpha.data_ptr(),
-            n_contrib.data_ptr() if n_contrib is not None else None, stream,
+            n_contrib.data_ptr() if n_contrib is not None else None,
+            t_final.data_ptr() if t_final is not None else None, stream,
         )
     if err != 0:
         raise RuntimeError(f"composite kernel launch failed: cudaError {err}")
     composite.launches += 1
-    return color, depth, alpha, n_contrib
+    out = (color, depth, alpha, n_contrib)
+    return out + (t_final,) if with_t_final else out
 
 
 composite.launches = 0

@@ -6,7 +6,7 @@ contract of the original 3DGS `Scene`: dataset type detection (COLMAP
 unsupported), first-run artifacts (`input.ply` copy + `cameras.json`),
 seeded camera shuffling, `cameras_extent` from the nerf++ radius,
 per-resolution-scale camera lists, and the Gaussian load paths (checkpoint
-iteration / pretrained PLY list). Saving checkpoints comes with training.
+iteration / pretrained PLY list), and `save` of a trained PLY per iteration.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import random
 
 import numpy as np
 
-from ..core.plyio import GaussianData, load_gaussian_ply
+from ..core.plyio import GaussianData, load_gaussian_ply, save_gaussian_ply
 from .cameras import Camera
 from .dataset_readers import (
     SceneInfo,
@@ -119,6 +119,11 @@ class Scene:
             for p in parts[1:]:
                 g = g.concat(p)
             self.gaussians = g
+
+    def save(self, iteration: int, gaussians: GaussianData | None = None):
+        g = gaussians if gaussians is not None else self.gaussians
+        path = os.path.join(self.model_path, f"point_cloud/iteration_{iteration}")
+        save_gaussian_ply(os.path.join(path, "point_cloud.ply"), g)
 
     def get_train_cameras(self, scale: float = 1.0) -> list[Camera]:
         return self.train_cameras[scale]

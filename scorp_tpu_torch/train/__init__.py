@@ -1,7 +1,17 @@
 from .state import (  # noqa: F401
+    AdamState,
     GaussianState,
+    adam_from_numpy,
+    adam_update,
     camera_from_numpy,
+    expon_lr,
     from_gaussian_data,
+    from_point_cloud,
+    grow_capacity,
+    init_adam,
     round_capacity,
     state_from_numpy,
+    to_gaussian_data,
 )
+from .densify import accumulate_stats, count_densify_candidates, densify_and_prune, reset_opacity  # noqa: F401
+from .step import OptParams, StepMetrics, train_step  # noqa: F401

@@ -13,6 +13,7 @@ import torch
 
 from scorp_tpu_torch.core.camera import look_at_camera
 from scorp_tpu_torch.ops.raster import RasterConfig, preprocess, rasterize
+from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
 from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
 from scorp_tpu_torch.ops.raster.expand import expand_inputs, expand_keys, expand_keys_plain
 
@@ -123,3 +124,65 @@ def test_wrappers_reject_bad_inputs(dev):
     x = expand_inputs(prep, w, h, 256, cull=True)
     with pytest.raises(TypeError):
         expand_keys(x._replace(geo=x.geo.double()))
+
+
+def _backward_inputs(counts, tiles_x, seed, device, n_rows, opaque=False):
+    """A stream, its gaussian rows (repeated, so atomics collide), K2's
+    residuals on it and cotangents drawn from the seed."""
+    data, start, count = _stream(counts, tiles_x, seed, device, opaque=opaque)
+    rng = np.random.default_rng(seed + 1)
+    gid = torch.as_tensor(rng.integers(0, n_rows, data.shape[0]), dtype=torch.int32,
+                          device=device)
+    bg = torch.tensor([0.2, 0.3, 0.4], device=device)
+    _, _, _, n_contrib, t_final = composite(data, start, count, bg, tiles_x=tiles_x,
+                                            track_ncontrib=True, with_t_final=True)
+    n_tiles = len(counts)
+    g = [torch.as_tensor(rng.normal(size=(n_tiles, c, 256)), dtype=torch.float32,
+                         device=device) for c in (3, 1, 1)]
+    return (data, gid, start, count, bg, *g, t_final, n_contrib, n_rows)
+
+
+@pytest.mark.parametrize("size", ["edge_cases", "many_tiles"])
+def test_backward_kernel_matches_plain(dev, size):
+    if size == "edge_cases":
+        tiles_x, counts, n_rows, opaque = 4, [0, 1, 255, 256, 257, 600, 3, 0, 40, 1000, 17, 0], 50, True
+    else:
+        tiles_x, n_rows, opaque = 8, 3000, False
+        counts = np.random.default_rng(3).integers(0, 900, 64).tolist()
+    args = _backward_inputs(counts, tiles_x, 11, dev, n_rows, opaque=opaque)
+    got = composite_backward(*args, tiles_x=tiles_x)
+    ref = composite_backward_plain(*args, tiles_x=tiles_x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    # atomics add in a run-dependent order: per column within 1e-4 of the
+    # column's largest magnitude
+    scale = ref.abs().amax(dim=0)
+    assert bool(((got - ref).abs() <= 1e-4 * scale + 1e-12).all())
+    assert float(scale.min()) > 0.0  # every row of the table got gradient
+
+
+def test_rasterize_backward_on_cuda_matches_cpu(dev):
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        xyz, scales, quats, opa, shs = (x.requires_grad_(True) for x in _scene(300, 4, device))
+        cam = look_at_camera([0, 0.3, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.7, 96, 72,
+                             device=device)
+        out = rasterize(xyz, opa, cam, torch.zeros(3, device=device), shs=shs, sh_degree=3,
+                        scales=scales, quats=quats, cfg=RasterConfig(max_keys=1 << 15))
+        (out.color.square().mean() + out.alpha.mean() + 0.1 * out.depth_accum.mean()).backward()
+        grads.append([x.grad.cpu() for x in (xyz, scales, quats, opa, shs)])
+    for a, b in zip(*grads):
+        scale = max(float(b.abs().max()), 1e-8)
+        torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0)
+
+
+def test_backward_wrapper_rejects_bad_inputs(dev):
+    args = list(_backward_inputs([5, 0, 3, 0], 2, 1, dev, 10))
+    with pytest.raises(TypeError):
+        composite_backward(*[args[0].double()] + args[1:], tiles_x=2)
+    with pytest.raises(TypeError):
+        composite_backward(*args[:1] + [args[1].long()] + args[2:], tiles_x=2)
+    with pytest.raises(ValueError):
+        composite_backward(*args[:5] + [args[5][:, :2].contiguous()] + args[6:], tiles_x=2)
+    with pytest.raises(ValueError):
+        composite_backward(*args, tiles_x=3)

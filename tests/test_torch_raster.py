@@ -1,5 +1,5 @@
 """Port parity, rasterizer: scorp_tpu_torch's preprocess, expansion golden,
-K1 and K2 plain versions and forward `rasterize` (all on the CPU) against
+K1 and K2 plain versions and `rasterize`'s forward (all on the CPU) against
 scorp_tpu's XLA golden paths and its Pallas kernels in interpret mode, on
 the same numpy inputs."""
 
@@ -195,8 +195,34 @@ def test_rasterize_empty_scene_is_background():
     np.testing.assert_allclose(out.alpha.numpy(), 0.0, atol=1e-6)
 
 
-def test_rasterize_is_forward_only():
-    xyz, scales, quats, opa, shs = make_scene(n=8)
-    with pytest.raises(ValueError, match="forward-only"):
-        rasterize(t(xyz).requires_grad_(True), t(opa), port_camera(), t(BG), shs=t(shs),
-                  scales=t(scales), quats=t(quats), cfg=TCFG)
+def test_rasterize_is_forward_only(monkeypatch):
+    """Without an input that requires grad, rasterize is the eval path:
+    nothing is saved for autograd and the compositor tracks no n_contrib."""
+    import scorp_tpu_torch.ops.raster as raster_pkg
+
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return composite(*args, **kwargs)
+
+    monkeypatch.setattr(raster_pkg, "composite", spy)
+    saved = []
+    xyz, scales, quats, opa, shs = make_scene(n=40, seed=3)
+    with torch.autograd.graph.saved_tensors_hooks(lambda x: saved.append(x) or x, lambda x: x):
+        out = rasterize(t(xyz), t(opa), port_camera(), t(BG), shs=t(shs), sh_degree=3,
+                        scales=t(scales), quats=t(quats), cfg=TCFG)
+    assert saved == [] and out.color.grad_fn is None
+    assert len(calls) == 1 and not calls[0].get("track_ncontrib", False)
+    assert float(out.alpha.mean()) > 0.01
+
+
+def test_rasterize_grad_path_yields_finite_gradients():
+    xyz, scales, quats, opa, shs = (t(a).requires_grad_(True) for a in make_scene(n=40, seed=3))
+    out = rasterize(xyz, opa, port_camera(), t(BG), shs=shs, sh_degree=3, scales=scales,
+                    quats=quats, cfg=TCFG)
+    assert out.color.grad_fn is not None
+    grads = torch.autograd.grad(out.color.mean() + out.alpha.mean(), [xyz, scales, quats, opa, shs])
+    for g in grads:
+        assert bool(torch.isfinite(g).all())
+    assert float(grads[0].abs().max()) > 0.0
