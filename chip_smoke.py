@@ -45,10 +45,35 @@ Phases, in order (any failure exits non-zero):
      the L1 + SSIM loss's forward and backward alone at that size; K3
      against its plain version on the step's inputs (the checks of phase
      5), its time beside its plain version and its bound, and K2's time with
-     n_contrib and t_final. The kernels are printed as one
-     {"kernels": [...]} JSON line, with each kernel's launches in the
-     training run of phase 6 (and K1/K2's in the eval run of phase 2).
-The last line is {"ok": true, "device": {...}}.
+     n_contrib and t_final.
+  8. full width, 2DGS eval path: the scene's 250k Gaussians as surfels
+     (their first two scales, bench.py:293-300) written as a PLY and
+     rendered through `scorp_tpu_torch.apps.render_2dgs.main` on cuda
+     (PNGs, zero dropped keys, a non-black frame, K1's and K4's launch
+     counters rose); K1 with its second ellipse and K4 against their plain
+     versions at 50k / 800x600 and at full width (every channel within max
+     5e-3 and mean 1e-5); K4 on the uncut stream (every rect key) against
+     the culled one at 50k, so the union cull drops no contributing key;
+     K4's time beside its plain version and its bound, and a whole
+     `render2d` frame's time, ATen ops and device busy time.
+  9. K5 against its plain version (the phase 8 checks, and n_contrib and
+     n_med equal on >= 99.9% of pixels) and K6 against its plain version
+     (per column 1e-4 x max, d_bg 1e-5) on a training stream at 50k /
+     800x600; a 2k / 128x96 `rasterize_surfel` backward on the GPU against
+     the CPU plain path, every channel in the loss.
+  10. full width, 2DGS training path: `scorp_tpu_torch.apps.train_2dgs.main`
+     on cuda from the 250k points for 30 iterations (one densification,
+     K1/K5/K6 once per step and K4 in the evaluations, finite losses, no
+     NaN, the PLY with 2 scale columns); then one `train_step_2d` at
+     bench.py's 2DGS measurement (Opt2DParams(lambda_dist=100) at iteration
+     8000, so the normal and distortion losses are on): its time and parts,
+     ATen ops, device busy time, peak memory, and K5 and K6 on its inputs
+     against their plain versions, with times and bounds.
+The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
+their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
+of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
+2DGS eval run of phase 8, K5 and K6 with theirs in the 2DGS training run of
+phase 10. The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. Scratch files go to build/smoke/.
@@ -255,14 +280,14 @@ def check_composite(got, ref, label: str) -> float:
 
 def check_expand(x, label: str) -> int:
     """K1 kernel against its plain version on the same inputs: identical
-    sorted keys without cull; with cull, kept counts within 0.01% + 8 (a
-    borderline edge test may round differently). Returns the max |diff| of
-    the sorted keys without cull."""
+    sorted keys without cull; with cull (and the second ellipse, if x has
+    one), kept counts within 0.01% + 8 (a borderline edge test may round
+    differently). Returns the max |diff| of the sorted keys without cull."""
     import torch
 
     from scorp_tpu_torch.ops.raster.expand import expand_keys, expand_keys_plain
 
-    x0 = x._replace(geo=None)
+    x0 = x._replace(geo=None, geo2=None)
     sk = torch.sort(expand_keys(x0)[0]).values
     sp = torch.sort(expand_keys_plain(x0)[0]).values
     err = int((sk - sp).abs().max())
@@ -784,6 +809,502 @@ def phase_train_step(args, device):
     }
 
 
+# --- the 2DGS surfel path (phases 8-10) -------------------------------------
+
+K4_FLOPS_PER_PAIR = 42      # f32 ops of the surfel geometry per evaluated (pixel, key) pair
+K6_FLOPS_PER_PAIR = 130     # f32 ops per (pixel, key) pair up to n_contrib in K6
+
+
+def surfel_gaussians(n: int, seed: int):
+    """bench.py's scene as surfels (bench.py:293-300): its first two scales."""
+    from scorp_tpu_torch.core.plyio import GaussianData
+
+    xyz, shs, scales, quats, opacity = bench_scene_arrays(n, seed)
+    return GaussianData(xyz=xyz, f_dc=shs[:, :1], f_rest=shs[:, 1:],
+                        opacity=np.log(opacity / (1.0 - opacity))[:, None].astype(np.float32),
+                        scaling=np.log(scales[:, :2]), rotation=quats)
+
+
+def surfel_stream(xyz, opacity, cam, w, h, cfg, **kw):
+    """The surfel routing as `rasterize_surfel` builds it, without grad:
+    (prep, K1's inputs with the conic and the circle, routing, per-surfel
+    table, stream rows)."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster import (
+        preprocess_surfel, route_stream, surfel_cull_ellipses, surfel_prep_to_common,
+        surfel_table,
+    )
+    from scorp_tpu_torch.ops.raster.expand import expand_inputs
+
+    with torch.no_grad():
+        prep = preprocess_surfel(xyz, opacity, cam, **kw)
+        ell, circ = surfel_cull_ellipses(prep)
+        common = surfel_prep_to_common(prep)
+        x = expand_inputs(common, w, h, cfg.max_keys, True, ell, circ)
+        route = route_stream(common, w, h, cfg, geo=ell, geo2=circ)
+        table = surfel_table(prep)
+        data = table[route.gid].contiguous()
+    return prep, x, route, table, data
+
+
+def surfel_stream_of_state(state, cam, w, h, cfg):
+    import torch
+
+    p = state.params
+    return surfel_stream(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam, w, h, cfg,
+                         shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
+                         scales=torch.exp(p["scaling"]), quats=p["rotation"], alive=state.alive)
+
+
+def check_surfel_forward(got, ref, label: str, kernel: str) -> float:
+    """K4/K5 outputs against the plain version's: every float channel within
+    max 5e-3 and mean 1e-5; K5's n_contrib and n_med equal on >= 99.9% of
+    pixels. Returns the largest max |diff|."""
+    import torch
+
+    names = ["color", "alpha", "depth", "normal", "median", "distortion",
+             "n_contrib", "n_med", "sum w m", "sum w m^2", "T_final"]
+    err = 0.0
+    for name, a, b in zip(names, got, ref):
+        if a.dtype == torch.int32:
+            same = float((a == b).to(torch.float32).mean())
+            check(same >= 0.999, f"{kernel} {label} {name} equal on {100 * same:.4f}% of pixels")
+            continue
+        d = (a - b).abs()
+        mx, mean = float(d.max()), float(d.mean())
+        err = max(err, mx)
+        check(bool(torch.isfinite(a).all()) and mx <= 5e-3 and mean <= 1e-5,
+              f"{kernel} {label} {name}: max |diff| {mx:.3g} <= 5e-3, mean {mean:.3g} <= 1e-5")
+    return err
+
+
+def surfel_backward_inputs(route, table, data, tiles_x, seed, device):
+    """K6's arguments as `_SurfelComposite` builds them (K5's residuals on
+    the stream) with the six cotangents drawn from `seed`; and K5's outputs."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster.surfel_composite import surfel_composite_train
+
+    bg = torch.tensor([0.2, 0.3, 0.4], device=device)
+    k5 = surfel_composite_train(data, route.tile_start, route.tile_count, bg, tiles_x=tiles_x)
+    rng = np.random.default_rng(seed)
+    n_tiles = route.tile_start.shape[0]
+    g = [torch.as_tensor(rng.normal(size=(n_tiles, c, 256)), dtype=torch.float32,
+                         device=device) for c in (3, 1, 1, 3, 1, 1)]
+    n_contrib, n_med, wm, wm2, t_final = k5[6:]
+    args = (data, route.gid, route.tile_start, route.tile_count, bg, *g, t_final, n_contrib,
+            n_med, wm, wm2, table.shape[0])
+    return args, k5
+
+
+def check_surfel_backward(args, tiles_x: int, label: str) -> float:
+    """K6 against its plain version on the same inputs: every value finite,
+    d_table within 1e-4 x the column's largest |plain| value per column (the
+    atomics add in a run-dependent order), and d_bg = sum T_final g_color from
+    K5's T_final against the plain K5's within 1e-5 relative. Returns the
+    largest absolute difference of d_table and the largest per-column ratio
+    of difference to column maximum."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward, surfel_backward_plain
+    from scorp_tpu_torch.ops.raster.surfel_composite import surfel_composite_plain
+
+    got = surfel_backward(*args, tiles_x=tiles_x)
+    ref = surfel_backward_plain(*args, tiles_x=tiles_x)
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all()),
+          f"K6 {label}: d_table finite ({tuple(got.shape)})")
+    diff = (got - ref).abs().amax(dim=0)
+    scale = ref.abs().amax(dim=0)
+    ratio = float((diff / torch.clamp_min(scale, 1e-30)).max())
+    check(bool((diff <= 1e-4 * scale).all()),
+          f"K6 {label}: per column max |diff| <= 1e-4 x max |plain| (worst {ratio:.3g}; "
+          f"largest column maximum {float(scale.max()):.3g})")
+    data, _, start, count, bg, g_color = args[:6]
+    t_plain = surfel_composite_plain(data, start, count, bg, tiles_x=tiles_x, train=True)[10]
+    d_bg = (args[11] * g_color).sum(dim=(0, 2))
+    d_bg_plain = (t_plain * g_color).sum(dim=(0, 2))
+    err = float((d_bg - d_bg_plain).abs().max())
+    check(err <= 1e-5 * float(d_bg_plain.abs().max()) and bool(torch.isfinite(d_bg).all()),
+          f"d_bg {label}: from K5's T_final within 1e-5 relative of the plain K5's ({err:.3g})")
+    return float(diff.max()), ratio
+
+
+def surfel_pairs(n_contrib, route):
+    """(pixel, key) pairs up to each pixel's last contributor, and the
+    (warp, key) pairs a warp walks (up to the warp's largest n_contrib)."""
+    import torch
+
+    nc = n_contrib[:, 0].to(torch.int64)
+    count = route.tile_count.to(torch.int64)[:, None]
+    pairs = int(torch.minimum(nc, count).sum())
+    warp_keys = int(torch.minimum(nc.view(-1, 8, 32).amax(dim=2), count).sum())
+    return pairs, warp_keys
+
+
+def bound_of(nbytes: float, ops: float):
+    """(least time in ms, "bytes" or "operations") on the H100's published rates."""
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations"
+
+
+def surfel_forward_bound(route, n_contrib, out_floats: int):
+    """K4/K5's least time: the geometry of every pair up to n_contrib at the
+    f32 rate, or the bytes (84 B per streamed key, 8 B per tile, bg, and
+    `out_floats` outputs per pixel: 10 for K4, 15 with K5's residuals)."""
+    import torch
+
+    pairs, _ = surfel_pairs(n_contrib, route)
+    n_tiles = route.tile_start.shape[0]
+    streamed = int(route.tile_count.sum(dtype=torch.int64))
+    nbytes = streamed * 84 + n_tiles * 8 + 12 + n_tiles * 256 * out_floats * 4
+    return (*bound_of(nbytes, pairs * K4_FLOPS_PER_PAIR), pairs, streamed)
+
+
+def surfel_backward_bound(route, n_contrib, n_rows: int):
+    """K6's least time: ~130 f32 ops per pair up to n_contrib plus 21 atomic
+    adds per (warp, key) pair at the f32 rate, or the bytes (88 B per
+    streamed key with its gid, 8 B per tile, 15 floats of cotangents and
+    residuals per pixel, the [n_rows, 21] gradient)."""
+    import torch
+
+    pairs, warp_keys = surfel_pairs(n_contrib, route)
+    n_tiles = route.tile_start.shape[0]
+    streamed = int(route.tile_count.sum(dtype=torch.int64))
+    nbytes = streamed * 88 + n_tiles * 8 + 12 + n_tiles * 256 * 15 * 4 + n_rows * 84
+    ops = pairs * K6_FLOPS_PER_PAIR + 21 * warp_keys
+    return (*bound_of(nbytes, ops), pairs, 21 * warp_keys)
+
+
+def phase_surfel_eval(args, device, scene_dir):
+    """Phase 8: the 2DGS eval path through apps.render_2dgs at full width,
+    with launch counters; K1 with its second ellipse and K4 against their
+    plain versions at 50k / 800x600 and at full width, the cull against no
+    cull; K4's and a render2d frame's times."""
+    import torch
+    from PIL import Image
+
+    from scorp_tpu_torch.apps import render_2dgs
+    from scorp_tpu_torch.core.plyio import save_gaussian_ply
+    from scorp_tpu_torch.ops.raster import RasterConfig, grid_dims, surfel_prep_to_common
+    from scorp_tpu_torch.ops.raster.common import _tile_bounds, sorted_expansion
+    from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.surfel_composite import (
+        surfel_composite, surfel_composite_plain, surfel_composite_train,
+    )
+    from scorp_tpu_torch.render import default_raster_config
+    from scorp_tpu_torch.render2d import render2d
+    from scorp_tpu_torch.train import from_gaussian_data
+
+    model_dir = os.path.join(WORK, "model2d")
+    g = surfel_gaussians(args.n, args.seed)
+    save_gaussian_ply(os.path.join(model_dir, "refined_aligned", "refined_1000.ply"), g)
+    argv = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml",
+            "--not_render_baseline", "--device", str(device)]
+    expand_keys.launches = surfel_composite.launches = 0
+    t0 = time.perf_counter()
+    results = render_2dgs.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"expand": expand_keys.launches, "surfel_composite": surfel_composite.launches}
+    records = results[os.path.join(model_dir, "rendered_refined")]
+    for r in records:
+        print(f"  view {r['image']}: {1e3 * r['seconds']:.3f} ms (render2d + copy to host), "
+              f"dropped {r['num_dropped_keys']}, mean alpha {r['alpha_mean']:.4f}")
+    print(f"  app wall {wall:.3f} s; launches during the app run: {launches}")
+    check(len(records) == 2, "two test views rendered")
+    for r in records:
+        with Image.open(os.path.join(model_dir, "rendered_refined", r["image"] + ".png")) as im:
+            rgba = np.asarray(im)
+        check(rgba.shape == (args.height, args.width, 4),
+              f"{r['image']}.png is RGBA {args.width}x{args.height}")
+        check(r["num_dropped_keys"] == 0, f"{r['image']}: no dropped keys")
+        covered = float((rgba[..., 3] > 0).mean())
+        check(r["alpha_mean"] > 0.01 and covered > 0.01 and float(rgba[..., :3].mean()) > 1.0,
+              f"{r['image']}: not black (mean alpha {r['alpha_mean']:.4f}, {covered:.3f} "
+              "of pixels covered)")
+    check(launches["expand"] > 0 and launches["surfel_composite"] > 0,
+          "K1 and K4 launched on the 2DGS eval path")
+
+    bg = torch.tensor([0.2, 0.3, 0.4], device=device)
+    # 50k / 800x600: K1 with both ellipses and K4 against their plain versions
+    w, h = args.mid_width, args.mid_height
+    xyz, shs, scales, quats, opacity = (torch.as_tensor(a, device=device)
+                                        for a in bench_scene_arrays(args.mid_n, args.seed))
+    prep, x, route, table, data = surfel_stream(
+        xyz, opacity, device_camera(w, h, device), w, h, RasterConfig(max_keys=1 << 20),
+        shs=shs, sh_degree=3, scales=scales[:, :2], quats=quats)
+    k1_err = check_expand(x, "surfel mid")
+    tiles_x = grid_dims(w, h)[0]
+    a4 = (data, route.tile_start, route.tile_count, bg)
+    k4 = surfel_composite(*a4, tiles_x=tiles_x)
+    k4_err = check_surfel_forward(k4, surfel_composite_plain(*a4, tiles_x=tiles_x), "mid", "K4")
+    # the union cull drops only keys with alpha < 1/255 on their whole tile:
+    # K4 on the uncut stream (every key of every rect) gives the same images
+    with torch.no_grad():
+        total = int(x.total)
+        st, gs, order, _, _ = sorted_expansion(surfel_prep_to_common(prep), w, h, total + 1,
+                                               cull=False)
+        start, count = _tile_bounds(st[:total], route.tile_start.shape[0])
+        uncut = table[order[gs[:total]]].contiguous()
+    k4_uncut = surfel_composite(uncut, start, count, bg, tiles_x=tiles_x)
+    worst = max(float((a - b).abs().max()) for a, b in zip(k4, k4_uncut))
+    kept = int(route.tile_count.sum())
+    check(worst <= 1e-6, f"K1's union cull changes no K4 output at mid size ({kept} of {total} "
+          f"rect keys kept; max |diff| {worst:.3g})")
+
+    # full width, on the eval path's state
+    w, h = args.width, args.height
+    state = from_gaussian_data(g, device=device)
+    cfg = default_raster_config(state.capacity)
+    cam = device_camera(w, h, device)
+    _, x, route, _, data = surfel_stream_of_state(state, cam, w, h, cfg)
+    k1_err = max(k1_err, check_expand(x, "surfel full width"))
+    tiles_x = grid_dims(w, h)[0]
+    a4 = (data, route.tile_start, route.tile_count, bg)
+    k4_err = max(k4_err, check_surfel_forward(
+        surfel_composite(*a4, tiles_x=tiles_x), surfel_composite_plain(*a4, tiles_x=tiles_x),
+        "full width", "K4"))
+    n_contrib = surfel_composite_train(*a4, tiles_x=tiles_x)[6]
+    k4_ms = cuda_ms(lambda: surfel_composite(*a4, tiles_x=tiles_x), 20)
+    k4_plain_ms = cuda_ms(lambda: surfel_composite_plain(*a4, tiles_x=tiles_x), 1)
+    bound_ms, bound_by, pairs, streamed = surfel_forward_bound(route, n_contrib, 10)
+
+    def frame():
+        return render2d(cam, state, bg, cfg=cfg)
+
+    frame_ms = cuda_ms(frame, 5)
+    ops = dispatched_ops(frame)
+    busy_ms, top = device_profile(frame, 5)
+    print(f"  K4: {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {streamed} streamed keys of {int(x.total)} rect keys, {pairs} "
+          f"(pixel, key) pairs up to n_contrib, {route.tile_start.shape[0]} tiles)")
+    print(f"  2DGS frame through render2d(): {frame_ms:.3f} ms (CUDA-event median of 5), "
+          f"{ops} ATen ops")
+    if top:
+        print(f"  device busy per frame (torch.profiler, 5 frames): {busy_ms:.3f} ms -> idle "
+              f"share {1 - busy_ms / frame_ms:.3f}")
+        for name, ms in top:
+            print(f"    {ms:8.4f} ms  {name}")
+    else:
+        print("  device busy per frame: not measured (the trace held no CUDA events)")
+    return launches, {"k4": dict(ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, err=k4_err),
+                      "k1_err": k1_err, "frame_ms": frame_ms}
+
+
+def phase_surfel_parity(args, device):
+    """Phase 9: K5 and K6 against their plain versions on a training stream
+    at 50k / 800x600, and a small rasterize_surfel backward on the GPU
+    against the CPU plain path."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster import RasterConfig, grid_dims, rasterize_surfel
+    from scorp_tpu_torch.ops.raster.surfel_composite import surfel_composite_plain
+
+    w, h = args.mid_width, args.mid_height
+    xyz, shs, scales, quats, opacity = (torch.as_tensor(a, device=device)
+                                        for a in bench_scene_arrays(args.mid_n, args.seed))
+    _, _, route, table, data = surfel_stream(
+        xyz, opacity, device_camera(w, h, device), w, h, RasterConfig(max_keys=1 << 20),
+        shs=shs, sh_degree=3, scales=scales[:, :2], quats=quats)
+    tiles_x = grid_dims(w, h)[0]
+    k6_args, k5 = surfel_backward_inputs(route, table, data, tiles_x, args.seed + 3, device)
+    a5 = (k6_args[0], *k6_args[2:5])  # data, tile_start, tile_count, bg
+    k5_plain = surfel_composite_plain(*a5, tiles_x=tiles_x, train=True)
+    k5_err = check_surfel_forward(k5, k5_plain, "mid", "K5")
+    k6_err = check_surfel_backward(k6_args, tiles_x, "mid")  # (absolute, relative)
+
+    w, h = 128, 96
+    arrays = bench_scene_arrays(2000, args.seed + 7)
+    target = np.random.default_rng(args.seed).uniform(0, 1, (3, h, w)).astype(np.float32)
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        xyz, shs, scales, quats, opacity = (torch.as_tensor(a, device=dev) for a in arrays)
+        leaves = [x.requires_grad_(True) for x in (xyz, shs, scales[:, :2].contiguous(), quats,
+                                                   opacity)]
+        bg = torch.zeros(3, device=dev, requires_grad=True)
+        out = rasterize_surfel(leaves[0], leaves[4], device_camera(w, h, dev), bg,
+                               shs=leaves[1], sh_degree=3, scales=leaves[2], quats=leaves[3],
+                               cfg=RasterConfig(max_keys=1 << 16))
+        loss = (((out.color - torch.as_tensor(target, device=dev)) ** 2).mean()
+                + 0.1 * out.alpha.mean() + 0.01 * out.depth_accum.mean()
+                + 0.1 * out.normal.square().mean() + 0.01 * out.depth_median.mean()
+                + 100.0 * out.distortion.mean())
+        grads.append([x.cpu() for x in torch.autograd.grad(loss, leaves + [bg])])
+    for name, a, b in zip(("xyz", "shs", "scales", "quats", "opacity", "bg"), *grads):
+        scale = max(float(b.abs().max()), 1e-12)
+        mx = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()) and mx <= 1e-4 * scale,
+              f"rasterize_surfel backward GPU vs CPU plain path, d{name}: max |diff| "
+              f"{mx:.3g} <= 1e-4 x {scale:.3g}")
+    return k5_err, k6_err
+
+
+def phase_surfel_train_app(args, device, scene_dir):
+    """Phase 10a: the 2DGS training main path, apps.train_2dgs on cuda from
+    the scene's points3D.bin, with launch counters."""
+    import torch
+
+    from scorp_tpu_torch.apps import train_2dgs
+    from scorp_tpu_torch.core.plyio import load_gaussian_ply
+    from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward
+    from scorp_tpu_torch.ops.raster.surfel_composite import (
+        surfel_composite, surfel_composite_train,
+    )
+
+    model_dir = os.path.join(WORK, "train_model2d")
+    iters = args.train_iters
+    # opacity_cull 0.005: the 2DGS default 0.5 would prune every point
+    # still at its initial opacity 0.1 at the first densify
+    argv = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml",
+            "--iterations", str(iters), "--densify_from_iter", "10",
+            "--densification_interval", "10", "--densify_until_iter", str(iters),
+            "--test_iterations", "1", str(iters), "--save_iterations", str(iters),
+            "--opacity_cull", "0.005", "--device", str(device)]
+    expand_keys.launches = surfel_composite.launches = 0
+    surfel_composite_train.launches = surfel_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, adam, log = train_2dgs.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"expand": expand_keys.launches, "surfel_composite": surfel_composite.launches,
+                "surfel_composite_train": surfel_composite_train.launches,
+                "surfel_backward": surfel_backward.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = log["loss"]
+    n_alive = int(state.num_alive())
+    print(f"  app wall {wall:.3f} s for {iters} iterations; peak device memory "
+          f"{peak / 2**20:.1f} MiB; launches {launches}")
+    print(f"  loss first {losses[0]:.6f}, last {losses[-1]:.6f}; alive {n_alive} of "
+          f"capacity {state.capacity}; capacity changes {log['capacity']}; "
+          f"raster regrows {log['raster_keys']}; dropped keys per iteration "
+          f"{log['dropped_keys']}")
+    check(launches["expand"] > 0 and launches["surfel_composite_train"] >= iters
+          and launches["surfel_backward"] >= iters and launches["surfel_composite"] > 0,
+          "K1, K5 and K6 launched once per step, K4 in the evaluations")
+    check(len(losses) == iters and all(np.isfinite(losses)), "every step's loss is finite")
+    for it, res in log["eval"]:
+        print(f"  eval after iteration {it}: " + ", ".join(
+            f"{name} L1 {l1:.5f} PSNR {p:.3f}" for name, (l1, p) in res.items()))
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values())
+          and all(bool(torch.isfinite(v).all()) for v in (*adam.m.values(), *adam.v.values())),
+          "no NaN or inf in the parameters and moments")
+    check(len(log["densify"]) == 1,
+          "one densification ran: (iteration, alive before, clone/split candidates, alive "
+          f"after) = {log['densify'][0] if log['densify'] else None}")
+    dropped = log["dropped_keys"]
+    check(dropped[-1] == 0 and all(dropped[i + 1] == 0 for i in range(iters - 1) if dropped[i]),
+          "no keys dropped at the last step nor after any raster regrow")
+    ply = os.path.join(model_dir, "point_cloud", f"iteration_{iters}", "point_cloud.ply")
+    g = load_gaussian_ply(ply, max_sh_degree=3)
+    check(g.n == n_alive and g.scaling.shape[1] == 2 and bool(np.isfinite(g.xyz).all()),
+          f"iteration_{iters}/point_cloud.ply written with 2 scale columns ({g.n} surfels)")
+    return launches, {"wall_s": wall, "loss_first": losses[0], "loss_last": losses[-1],
+                      "alive": n_alive, "peak_mib": peak / 2**20}
+
+
+def phase_surfel_train_step(args, device):
+    """Phase 10b: one train_step_2d at bench.py's 2DGS training measurement
+    (bench.py:302-350, 510-524): times, ops, device busy and peak memory; K5
+    and K6 on the step's inputs against their plain versions, with times."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster import grid_dims
+    from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward, surfel_backward_plain
+    from scorp_tpu_torch.ops.raster.surfel_composite import (
+        surfel_composite_plain, surfel_composite_train,
+    )
+    from scorp_tpu_torch.render import tuned_raster_config
+    from scorp_tpu_torch.train import Opt2DParams, from_gaussian_data, init_adam, train_step_2d
+
+    w, h = args.width, args.height
+    state = from_gaussian_data(surfel_gaussians(args.n, args.seed), capacity=args.n,
+                               device=device)
+    adam = init_adam(state)
+    cam = device_camera(w, h, device)
+    gt = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (3, h, w)),
+                         dtype=torch.float32, device=device)
+    zeros = torch.zeros(1, h, w, device=device)
+    bg = torch.zeros(3, device=device)
+    cfg = tuned_raster_config(args.n, max_keys=(1 << 20) + (1 << 19) + (1 << 18),
+                              stream_keys=(1 << 20) + (1 << 19) + (1 << 17))
+    opt = Opt2DParams(lambda_dist=100.0)  # the normal and distortion losses on at 8000
+
+    def step(hook=None):
+        return train_step_2d(state, adam, cam, gt, zeros, zeros, 8000, bg, opt=opt,
+                             sh_degree=3, cfg=cfg, stage_hook=hook)
+
+    first = step()[2]
+    check(int(first.num_dropped_keys) == 0, "first step: no dropped keys")
+    surfel_composite_train.launches = surfel_backward.launches = 0
+    last = step()[2]
+    per_step = {"K5": surfel_composite_train.launches, "K6": surfel_backward.launches}
+    check(int(last.num_dropped_keys) == 0 and bool(torch.isfinite(last.loss)),
+          f"last step: no dropped keys, loss {float(last.loss):.6f} finite")
+
+    parts = {"forward": [], "backward": [], "adam + statistics": []}
+    totals = []
+    for _ in range(11):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        step(lambda stage, ev=ev: ev[1 if stage == "forward" else 2].record())
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(parts):
+            parts[name].append(ev[i].elapsed_time(ev[i + 1]))
+        totals.append(ev[0].elapsed_time(ev[3]))
+    step_ms = statistics.median(totals[1:])
+    parts = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    ops = dispatched_ops(step)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    busy_ms, top = device_profile(step, 5)
+    print(f"  train_step_2d: {step_ms:.3f} ms (CUDA-event median of 10 after a warm-up; "
+          f"fastest {min(totals[1:]):.3f}, slowest {max(totals[1:]):.3f}); parts "
+          + json.dumps({k: round(v, 4) for k, v in parts.items()}))
+    print(f"  ATen ops dispatched per step: {ops}; peak device memory {peak / 2**20:.1f} MiB; "
+          f"launches per step {per_step}")
+    if top:
+        print(f"  device busy per step (torch.profiler, 5 steps): {busy_ms:.3f} ms of a "
+              f"{step_ms:.3f} ms step -> idle share {1 - busy_ms / step_ms:.3f}")
+        for name, ms in top:
+            print(f"    {ms:8.4f} ms  {name}")
+    else:
+        print("  device busy per step: not measured (the trace held no CUDA events)")
+
+    # K5 and K6 on the step's own inputs (the routing of its forward)
+    _, _, route, table, data = surfel_stream_of_state(state, cam, w, h, cfg)
+    tiles_x = grid_dims(w, h)[0]
+    k6_args, k5 = surfel_backward_inputs(route, table, data, tiles_x, args.seed + 5, device)
+    a5 = (k6_args[0], *k6_args[2:5])  # data, tile_start, tile_count, bg
+    k5_err = check_surfel_forward(
+        k5, surfel_composite_plain(*a5, tiles_x=tiles_x, train=True), "full width", "K5")
+    k6_err = check_surfel_backward(k6_args, tiles_x, "full width")
+    k5_ms = cuda_ms(lambda: surfel_composite_train(*a5, tiles_x=tiles_x), 20)
+    k5_plain_ms = cuda_ms(lambda: surfel_composite_plain(*a5, tiles_x=tiles_x, train=True), 1)
+    k6_ms = cuda_ms(lambda: surfel_backward(*k6_args, tiles_x=tiles_x), 20)
+    k6_plain_ms = cuda_ms(lambda: surfel_backward_plain(*k6_args, tiles_x=tiles_x), 1)
+    k5_bound, k5_by, pairs, streamed = surfel_forward_bound(route, k5[6], 15)
+    k6_bound, k6_by, _, atomics = surfel_backward_bound(route, k5[6], table.shape[0])
+    print(f"  K5: {k5_ms:.4f} ms, plain {k5_plain_ms:.3f} ms, bound {k5_bound:.4f} ms ({k5_by}; "
+          f"{streamed} streamed keys, {pairs} (pixel, key) pairs up to n_contrib)")
+    print(f"  K6: {k6_ms:.4f} ms, plain {k6_plain_ms:.3f} ms, bound {k6_bound:.4f} ms ({k6_by}; "
+          f"{atomics} atomic adds at most, {table.shape[0]} table rows)")
+    return {
+        "step_ms": step_ms, "parts": parts, "ops": ops, "busy_ms": busy_ms if top else None,
+        "peak_mib": peak / 2**20, "per_step": per_step,
+        "k5": dict(ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound, bound_by=k5_by,
+                   err=k5_err),
+        "k6": dict(ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound, bound_by=k6_by,
+                   err=k6_err),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -811,6 +1332,11 @@ def main(argv=None) -> int:
     from scorp_tpu_torch.ops.raster.composite import SOURCE as K2_SOURCE
     from scorp_tpu_torch.ops.raster.expand import REPLACES as K1_REPLACES
     from scorp_tpu_torch.ops.raster.expand import SOURCE as K1_SOURCE
+    from scorp_tpu_torch.ops.raster.surfel_backward import REPLACES as K6_REPLACES
+    from scorp_tpu_torch.ops.raster.surfel_backward import SOURCE as K6_SOURCE
+    from scorp_tpu_torch.ops.raster.surfel_composite import REPLACES as K4_REPLACES
+    from scorp_tpu_torch.ops.raster.surfel_composite import REPLACES_TRAIN as K5_REPLACES
+    from scorp_tpu_torch.ops.raster.surfel_composite import SOURCE as SK_SOURCE
 
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -852,30 +1378,65 @@ def main(argv=None) -> int:
 
     print(f"[7] train_step at full width: {args.n} gaussians, {args.width}x{args.height}")
     step = phase_train_step(args, device)
-    shutil.rmtree(WORK, ignore_errors=True)
     k3_err = max(k3_err, step["k3"]["err"])
+    torch.cuda.empty_cache()
+
+    print(f"[8] 2DGS eval at full width: {args.n} surfels, {args.width}x{args.height}, "
+          "render_2dgs; K1 with its second ellipse and K4 vs their plain versions")
+    launches2d, eval2d = phase_surfel_eval(args, device, scene_dir)
+    k1_err = max(k1_err, eval2d["k1_err"])
+    torch.cuda.empty_cache()
+
+    print(f"[9] K5 and K6 vs their plain versions at {args.mid_n} / "
+          f"{args.mid_width}x{args.mid_height}; rasterize_surfel backward GPU vs CPU")
+    k5_err, k6_err = phase_surfel_parity(args, device)
+    torch.cuda.empty_cache()
+
+    print(f"[10] 2DGS training: {args.n} points, {args.width}x{args.height}, train_2dgs, "
+          f"{args.train_iters} iterations; train_step_2d at full width")
+    train2d_launches, train2d = phase_surfel_train_app(args, device, scene_dir)
+    torch.cuda.empty_cache()
+    step2d = phase_surfel_train_step(args, device)
+    k5_err = max(k5_err, step2d["k5"]["err"])
+    k6_err = tuple(max(a, b) for a, b in zip(k6_err, step2d["k6"]["err"]))
+    shutil.rmtree(WORK, ignore_errors=True)
+
+    def timed(d):
+        return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
     kernels = [
         {"name": "K1 expand_keys", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": train_launches["expand"],
-         "launches_eval": launches["expand"],
-         "max_abs_err": k1_err, "max_abs_diff": k1_err, **{
-             k: full["k1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "launches_eval": launches["expand"], "launches_2dgs": train2d_launches["expand"],
+         "launches_2dgs_eval": launches2d["expand"],
+         "max_abs_err": k1_err, "max_abs_diff": k1_err, **timed(full["k1"]),
          "library_ms": None, "kept": full["k1"]["kept"], "kept_golden": full["k1"]["golden"]},
         {"name": "K2 composite", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train_launches["composite"],
          "launches_eval": launches["composite"],
-         "max_abs_err": k2_err, "max_abs_diff": k2_err, **{
-             k: full["k2"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "max_abs_err": k2_err, "max_abs_diff": k2_err, **timed(full["k2"]),
          "ms_train": step["k2_train_ms"], "library_ms": None},
         {"name": "K3 composite_backward", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train_launches["backward"],
-         "max_abs_err": k3_err, **{
-             k: step["k3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "max_abs_err": k3_err, **timed(step["k3"]),
          "library_ms": None},
+        {"name": "K4 surfel_composite", "route": "cuda", "source": SK_SOURCE,
+         "replaces": K4_REPLACES, "launches": launches2d["surfel_composite"],
+         "launches_2dgs_train_evals": train2d_launches["surfel_composite"],
+         "max_abs_err": eval2d["k4"]["err"], **timed(eval2d["k4"]), "library_ms": None},
+        {"name": "K5 surfel_composite_train", "route": "cuda", "source": SK_SOURCE,
+         "replaces": K5_REPLACES, "launches": train2d_launches["surfel_composite_train"],
+         "max_abs_err": k5_err, **timed(step2d["k5"]), "library_ms": None},
+        {"name": "K6 surfel_backward", "route": "cuda", "source": K6_SOURCE,
+         "replaces": K6_REPLACES, "launches": train2d_launches["surfel_backward"],
+         "max_abs_err": k6_err[0], "max_rel_err_per_column": k6_err[1],
+         **timed(step2d["k6"]), "library_ms": None},
     ]
     print(f"  training app: loss {train['loss_first']:.6f} -> {train['loss_last']:.6f}, "
           f"{train['wall_s']:.2f} s; train_step {step['step_ms']:.3f} ms")
+    print(f"  2DGS training app: loss {train2d['loss_first']:.6f} -> "
+          f"{train2d['loss_last']:.6f}, {train2d['wall_s']:.2f} s; train_step_2d "
+          f"{step2d['step_ms']:.3f} ms; 2DGS frame {eval2d['frame_ms']:.3f} ms")
     print(f"  total {time.perf_counter() - t_start:.1f} s; frame {full['frame_ms']:.3f} ms")
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

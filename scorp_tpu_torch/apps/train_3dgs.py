@@ -28,6 +28,7 @@ import threading
 import time
 import uuid
 from argparse import ArgumentParser, Namespace
+from dataclasses import fields
 
 import numpy as np
 import torch
@@ -35,9 +36,11 @@ import torch
 from ..config import ModelParams, OptimizationParams, PipelineParams, save_cfg_args
 from ..device import resolve_device
 from ..render import regrow_config, render, tuned_raster_config
+from ..render2d import render2d
 from ..scene import Scene
 from ..scene.cameras import Camera
 from ..train import (
+    Opt2DParams,
     OptParams,
     adam_from_numpy,
     count_densify_candidates,
@@ -50,37 +53,16 @@ from ..train import (
     state_from_numpy,
     to_gaussian_data,
     train_step,
+    train_step_2d,
 )
 from ..utils.progress import ProgressMeter
 
 
-def opt_params_from_args(opt: OptimizationParams) -> OptParams:
-    return OptParams(
-        iterations=opt.iterations,
-        position_lr_init=opt.position_lr_init,
-        position_lr_final=opt.position_lr_final,
-        position_lr_delay_mult=opt.position_lr_delay_mult,
-        position_lr_max_steps=opt.position_lr_max_steps,
-        feature_lr=opt.feature_lr,
-        opacity_lr=opt.opacity_lr,
-        scaling_lr=opt.scaling_lr,
-        rotation_lr=opt.rotation_lr,
-        percent_dense=opt.percent_dense,
-        lambda_dssim=opt.lambda_dssim,
-        lambda_depth_sensor=opt.lambda_depth_sensor,
-        lambda_isotropic=opt.lambda_isotropic,
-        opacity_cull=opt.opacity_cull,
-        max_screen_size=opt.max_screen_size,
-        depth_from_iter=opt.depth_from_iter,
-        dn_l1_weight_init=opt.dn_l1_weight_init,
-        dn_l1_weight_final=opt.dn_l1_weight_final,
-        densification_interval=opt.densification_interval,
-        opacity_reset_interval=opt.opacity_reset_interval,
-        densify_from_iter=opt.densify_from_iter,
-        densify_until_iter=opt.densify_until_iter,
-        densify_grad_threshold=opt.densify_grad_threshold,
-        random_background=opt.random_background,
-    )
+def opt_params_from_args(opt: OptimizationParams, cls=OptParams) -> OptParams:
+    """The step's hyperparameters (`cls`: OptParams, or Opt2DParams for
+    surfels) from the CLI group: every field the two share; the rest keep
+    their defaults (spatial_lr_scale its forced 1.0)."""
+    return cls(**{f.name: getattr(opt, f.name) for f in fields(cls) if hasattr(opt, f.name)})
 
 
 class GtDeviceCache:
@@ -191,9 +173,10 @@ def load_checkpoint(path: str, device) -> tuple:
 
 
 def evaluate(scene: Scene, state, sh_degree: int, bg, cfg, iteration: int, device,
-             quiet=False):
+             quiet=False, render_fn=render):
     """In-loop test/train eval (the reference's training_report), rendered
-    from the live padded state with the training RasterConfig."""
+    by `render_fn` (`render`, or `render2d` for surfels) from the live padded
+    state with the training RasterConfig."""
     results = {}
     train_cams = scene.get_train_cameras()
     configs = [
@@ -206,7 +189,7 @@ def evaluate(scene: Scene, state, sh_degree: int, bg, cfg, iteration: int, devic
                 continue
             l1s, psnrs = [], []
             for cam in cams:
-                out = render(cam.to_torch(device), state, bg, sh_degree=sh_degree, cfg=cfg)
+                out = render_fn(cam.to_torch(device), state, bg, sh_degree=sh_degree, cfg=cfg)
                 if int(out["num_dropped_keys"]) > 0 and not quiet:
                     print(f"\n[ITER {iteration}] eval view dropped "
                           f"{int(out['num_dropped_keys'])} keys")
@@ -233,10 +216,17 @@ def training(
     debug_from,
     quiet: bool = False,
     device: str | torch.device = "cuda",
+    surfel: bool = False,
 ):
     """Returns (scene, state, adam, log) with `log` holding each
     iteration's loss and dropped-key count, the capacity changes, the raster
-    regrows and the (iteration, results) of each in-loop evaluation."""
+    regrows, the (iteration, results) of each in-loop evaluation and the
+    (iteration, alive before, candidates, alive after) of each
+    densification.
+
+    `surfel=True` is the 2DGS trainer's loop (apps/train_2dgs.py): surfels
+    from the point cloud, `train_step_2d` with Opt2DParams and `render2d`
+    for the evaluations; everything else is shared."""
     dev = resolve_device(device)
     if not dataset.model_path:
         dataset.model_path = os.path.join("./output/", str(uuid.uuid4())[:10])
@@ -252,10 +242,11 @@ def training(
         print("Tensorboard not available: not logging progress")
 
     scene = Scene(dataset, load_gaussians=False, max_sh_degree=dataset.sh_degree)
-    op = opt_params_from_args(opt)
+    op = opt_params_from_args(opt, Opt2DParams if surfel else OptParams)
+    step_fn, render_fn = (train_step_2d, render2d) if surfel else (train_step, render)
 
     state = from_point_cloud(scene.init_points, scene.init_colors,
-                             max_sh_degree=dataset.sh_degree, device=dev)
+                             max_sh_degree=dataset.sh_degree, surfel=surfel, device=dev)
     adam = init_adam(state)
     first_iter = 0
     if checkpoint:
@@ -274,7 +265,8 @@ def training(
     # a restored run resumes at the SH degree the schedule had reached
     active_sh = min(first_iter // 1000, dataset.sh_degree)
     meter = ProgressMeter(opt.iterations, disable=quiet)
-    log = {"loss": [], "dropped_keys": [], "capacity": [], "raster_keys": [], "eval": []}
+    log = {"loss": [], "dropped_keys": [], "capacity": [], "raster_keys": [], "eval": [],
+           "densify": []}
 
     t_start = time.time()
     for iteration in range(first_iter + 1, opt.iterations + 1):
@@ -284,7 +276,7 @@ def training(
         cam, gt = sampler.next()
         bg = rng.uniform(size=3).astype(np.float32) if opt.random_background else bg_fixed
         gt_img, gt_dcam, gt_dest = gt_cache.get(cam, gt)
-        state, adam, metrics = train_step(
+        state, adam, metrics = step_fn(
             state, adam, cam.to_torch(dev),
             gt_img, gt_dcam, gt_dest,
             iteration, torch.as_tensor(bg, device=dev),
@@ -302,7 +294,7 @@ def training(
 
         if iteration in testing_iterations:
             results = evaluate(scene, state, active_sh, bg_fixed, cfg, iteration, dev,
-                               quiet=quiet)
+                               quiet=quiet, render_fn=render_fn)
             log["eval"].append((iteration, results))
             if tb_writer is not None:
                 for name, (l1v, psnrv) in results.items():
@@ -332,6 +324,8 @@ def training(
                     max_screen_size=opt.max_screen_size,
                     use_size_threshold=use_size,
                 )
+                log["densify"].append((iteration, n_alive, expected_new,
+                                       int(state.num_alive())))
                 n_alive = int(state.num_alive())
                 # grow BEFORE the buffer can saturate (a saturated densify
                 # drops clone/split candidates the reference would keep)

@@ -1,5 +1,5 @@
 """Config / CLI system, a copy of the parts of `scorp_tpu.config` that
-rendering and 3DGS training need (kept here so the port imports nothing of
+rendering and 3DGS/2DGS training need (kept here so the port imports nothing of
 the JAX package).
 
   1. param groups whose attributes become argparse flags, with the
@@ -103,6 +103,23 @@ class OptimizationParams(ParamGroup):
     densify_from_iter: int = 500
     densify_until_iter: int = 25_000
     densify_grad_threshold: float = 0.0002
+
+
+@dataclass
+class Optimization2DParams(OptimizationParams):
+    """2DGS deltas (gs2dgs/arguments/__init__.py:95-109)."""
+
+    lambda_dist: float = 0.0
+    depth_ratio: float = 1.0
+    opacity_cull: float = 0.5
+    max_screen_size: float = 0.2
+    patch_size: int = 128
+    patch_num: int = 4
+    lambda_patch_depth: float = 0.0
+    # gs2dgs OptimizationParams overrides the 3DGS values for these
+    lambda_isotropic: float = 0.0001
+    dn_l1_weight_init: float = 0.2
+    dn_l1_weight_final: float = 0.05
 
 
 def save_cfg_args(model_path: str, args: Namespace):

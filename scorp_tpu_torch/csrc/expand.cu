@@ -6,8 +6,11 @@
 //
 // Input, depth-sorted per gaussian g < n: starts[g] (exclusive prefix sum
 // of the rect tile counts, clamped to k_cap), rect[g] = (x0, y0, x1, y1)
-// and, when culling, geo[g] = (cx, cy, A, B, C, t2). limit[0] =
-// min(total, k_cap). Output per key slot k < k_cap: the int64 sort key
+// and, when culling, geo[g] = (cx, cy, A, B, C, t2) and optionally a second
+// ellipse geo2[g] (the surfel path passes its UV-disc conic and low-pass
+// circle; the 3DGS path passes null): a key is kept iff either ellipse
+// admits its tile. limit[0] = min(total, k_cap). Output per key slot
+// k < k_cap: the int64 sort key
 // (tile << bits_g) | g, or the sentinel num_tiles << bits_g for a culled key
 // or k >= limit; and kept[0] += the number of live keys.
 //
@@ -94,7 +97,7 @@ __device__ bool keep_tile(const float* __restrict__ geo, int tx, int ty) {
 __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
     const int* __restrict__ starts, const int* __restrict__ limit,
     const int4* __restrict__ rect, const float* __restrict__ geo,
-    int n, int k_cap, int tiles_x, int num_tiles, int bits_g,
+    const float* __restrict__ geo2, int n, int k_cap, int tiles_x, int num_tiles, int bits_g,
     long long* __restrict__ keys, int* __restrict__ kept) {
   const int k = blockIdx.x * kBlock + threadIdx.x;
   bool live = false;
@@ -115,7 +118,8 @@ __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
       const int qy = local / span;
       const int tx = r.x + (local - qy * span);
       const int ty = r.y + qy;
-      live = geo == nullptr || keep_tile(geo + 6 * (size_t)g, tx, ty);
+      live = geo == nullptr || keep_tile(geo + 6 * (size_t)g, tx, ty) ||
+             (geo2 != nullptr && keep_tile(geo2 + 6 * (size_t)g, tx, ty));
       if (live) key = ((long long)(ty * tiles_x + tx) << bits_g) | (long long)g;
     }
     keys[k] = key;
@@ -127,12 +131,12 @@ __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
 }  // namespace
 
 extern "C" int scorp_expand_keys(const void* starts, const void* limit, const void* rect,
-                                 const void* geo, int n, int k_cap, int tiles_x,
-                                 int num_tiles, int bits_g, void* keys, void* kept,
-                                 void* stream) {
+                                 const void* geo, const void* geo2, int n, int k_cap,
+                                 int tiles_x, int num_tiles, int bits_g, void* keys,
+                                 void* kept, void* stream) {
   const int grid = (k_cap + kBlock - 1) / kBlock;
   expand_keys_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      (const int*)starts, (const int*)limit, (const int4*)rect, (const float*)geo, n,
-      k_cap, tiles_x, num_tiles, bits_g, (long long*)keys, (int*)kept);
+      (const int*)starts, (const int*)limit, (const int4*)rect, (const float*)geo,
+      (const float*)geo2, n, k_cap, tiles_x, num_tiles, bits_g, (long long*)keys, (int*)kept);
   return (int)cudaGetLastError();
 }

@@ -34,11 +34,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# C entry point and argument kinds of each source: p = pointer/stream, i = int
+# C entry points of each source and their argument kinds: p = pointer or
+# stream, i = int
 SIGNATURES = {
-    "expand": ("scorp_expand_keys", "ppppiiiiippp"),
-    "composite": ("scorp_composite", "ppppiipppppp"),
-    "backward": ("scorp_composite_backward", "pppppppppppiip"),
+    "expand": {"scorp_expand_keys": "pppppiiiiippp"},
+    "composite": {"scorp_composite": "ppppiipppppp"},
+    "backward": {"scorp_composite_backward": "pppppppppppiip"},
+    "surfel_composite": {
+        "scorp_surfel_composite": "ppppii" + "p" * 7,
+        "scorp_surfel_composite_train": "ppppii" + "p" * 12,
+    },
+    "surfel_backward": {"scorp_surfel_backward": "p" * 17 + "iip"},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -55,7 +61,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path; its hash covers the source, every header in
+    csrc/ (the surfel kernels share one) and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -95,10 +104,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all((name,))
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, kinds = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
-        fn.restype = ctypes.c_int
+        for fn_name, kinds in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

@@ -466,14 +466,16 @@ def _tile_bounds(sorted_tile: torch.Tensor, num_tiles: int):
 
 
 def sorted_expansion(prep: Preprocessed, width: int, height: int, k_cap: int,
-                     cull: bool = True):
+                     cull: bool = True, geo: torch.Tensor | None = None,
+                     geo2: torch.Tensor | None = None):
     """Expansion (kernel K1 on CUDA tensors, its plain version on CPU) +
     one int64 sort -> (sorted_tile [K], g_sorted [K], order, total, kept).
     Culled and out-of-range keys carry the sentinel tile `num_tiles` and
-    sort past every live key."""
+    sort past every live key. `geo`/`geo2` are the cull ellipses (default:
+    the 3DGS ellipse alone)."""
     from .expand import expand_inputs, expand_keys
 
-    x = expand_inputs(prep, width, height, k_cap, cull)
+    x = expand_inputs(prep, width, height, k_cap, cull, geo, geo2)
     keys, kept = expand_keys(x)
     s = torch.sort(keys).values
     return s >> x.bits_g, s & ((1 << x.bits_g) - 1), x.order, x.total, kept
@@ -493,19 +495,21 @@ def stream_table(prep: Preprocessed) -> torch.Tensor:
     )
 
 
-def route_stream(prep: Preprocessed, width: int, height: int,
-                 cfg: RasterConfig) -> StreamRouting:
+def route_stream(prep: Preprocessed, width: int, height: int, cfg: RasterConfig,
+                 geo: torch.Tensor | None = None,
+                 geo2: torch.Tensor | None = None) -> StreamRouting:
     """Expansion + sort -> the gaussian row of every stream slot and the
     per-tile ranges. Integer work only: the training path runs it under
     no_grad on the detached prep, as the JAX package stops gradients at its
-    routing (`pallas.py:324`)."""
+    routing (`pallas.py:324`). `geo`/`geo2` are K1's cull ellipses (default:
+    the 3DGS ellipse; the surfel path passes its conic and circle)."""
     tiles_x, tiles_y = grid_dims(width, height)
     num_tiles = tiles_x * tiles_y
     k_cap = cfg.max_keys
     k2 = min(cfg.stream_cap, k_cap)
 
     sorted_tile, g_sorted, order, total, kept = sorted_expansion(
-        prep, width, height, k_cap, cull=True
+        prep, width, height, k_cap, cull=True, geo=geo, geo2=geo2
     )
     # culled + out-of-range keys sort past every live key, so slicing to
     # the post-cull capacity is the compaction; their slots get a valid but

@@ -10,7 +10,9 @@ The depth argsort, the rect tile `counts`, their exclusive prefix sum
 keeps them outside Pallas. Per key slot k < k_cap the kernel finds its
 gaussian g (the last with starts[g] <= k), its tile inside g's rect, runs
 the f32 alpha>=1/255 ellipse-vs-tile test on g's cull geometry
-(cx, cy, A, B, C, t2), and writes the int64 sort key (tile << bits_g) | g,
+(cx, cy, A, B, C, t2) and, when there is one, on its second ellipse `geo2`
+(a key is kept iff either admits its tile: the surfel path's UV-disc conic
+and low-pass circle), and writes the int64 sort key (tile << bits_g) | g,
 or the sentinel num_tiles << bits_g for culled keys and keys at or past
 min(total, k_cap). `kept` counts the live keys.
 """
@@ -42,6 +44,7 @@ class ExpandInputs(NamedTuple):
     limit: torch.Tensor         # [1] int32 min(total, k_cap)
     rect: torch.Tensor          # [N, 4] int32 depth-sorted rects (x0, y0, x1, y1)
     geo: torch.Tensor | None    # [N, 6] f32 depth-sorted cull ellipses; None = no cull
+    geo2: torch.Tensor | None   # [N, 6] f32 depth-sorted second ellipses (union); or None
     k_cap: int
     tiles_x: int
     num_tiles: int
@@ -51,8 +54,12 @@ class ExpandInputs(NamedTuple):
 
 
 def expand_inputs(prep: Preprocessed, width: int, height: int, k_cap: int,
-                  cull: bool) -> ExpandInputs:
-    """The depth sort and prefix sums around the kernel (plain torch)."""
+                  cull: bool, geo: torch.Tensor | None = None,
+                  geo2: torch.Tensor | None = None) -> ExpandInputs:
+    """The depth sort and prefix sums around the kernel (plain torch). With
+    `cull`, the cull ellipses are `geo` (default: the 3DGS ellipse,
+    `default_cull_geo`) and the optional `geo2`, both [N, 6] in the prep's
+    order."""
     n = prep.xy.shape[0]
     if n == 0:
         raise ValueError("key expansion needs at least one gaussian")
@@ -60,12 +67,17 @@ def expand_inputs(prep: Preprocessed, width: int, height: int, k_cap: int,
     order = depth_order(prep)
     rect = prep.rect[order].contiguous()
     _, _, _, _, starts, total = key_routing(rect)
-    geo = default_cull_geo(prep)[order].contiguous() if cull else None
+    if cull:
+        geo = (default_cull_geo(prep) if geo is None else geo)[order].contiguous()
+        geo2 = None if geo2 is None else geo2[order].contiguous()
+    else:
+        geo = geo2 = None
     return ExpandInputs(
         starts=torch.clamp_max(starts, k_cap).to(torch.int32),
         limit=torch.clamp_max(total, k_cap).to(torch.int32).reshape(1),
         rect=rect,
         geo=geo,
+        geo2=geo2,
         k_cap=k_cap,
         tiles_x=tiles_x,
         num_tiles=tiles_x * tiles_y,
@@ -82,6 +94,18 @@ def cull_keep_tight(q_min, qabs, pd, t2):
     return ~pd | (q_min <= t2 + 4e-5 * qabs + 2e-3)
 
 
+def _keep_plain(geo, g, tx, ty):
+    gg = geo[g]
+    fx = (tx * TILE).to(torch.float32)
+    fy = (ty * TILE).to(torch.float32)
+    cx, cy = gg[:, 0], gg[:, 1]
+    q_min, qabs, pd = edge_min_q(
+        fx - cx, fx + (TILE - 1) - cx, fy - cy, fy + (TILE - 1) - cy,
+        gg[:, 2], gg[:, 3], gg[:, 4],
+    )
+    return cull_keep_tight(q_min, qabs, pd, gg[:, 5])
+
+
 def expand_keys_plain(x: ExpandInputs):
     """Plain PyTorch version of the kernel: (keys [k_cap] int64, kept [1] int32)."""
     dev = x.starts.device
@@ -96,15 +120,10 @@ def expand_keys_plain(x: ExpandInputs):
     ty = r[:, 1] + qy
     live = ks < x.limit
     if x.geo is not None:
-        gg = x.geo[g]
-        fx = (tx * TILE).to(torch.float32)
-        fy = (ty * TILE).to(torch.float32)
-        cx, cy = gg[:, 0], gg[:, 1]
-        q_min, qabs, pd = edge_min_q(
-            fx - cx, fx + (TILE - 1) - cx, fy - cy, fy + (TILE - 1) - cy,
-            gg[:, 2], gg[:, 3], gg[:, 4],
-        )
-        live = live & cull_keep_tight(q_min, qabs, pd, gg[:, 5])
+        keep = _keep_plain(x.geo, g, tx, ty)
+        if x.geo2 is not None:
+            keep = keep | _keep_plain(x.geo2, g, tx, ty)
+        live = live & keep
     tile = (ty * x.tiles_x + tx).to(torch.int64)
     keys = torch.where(
         live,
@@ -129,6 +148,10 @@ def expand_keys(x: ExpandInputs):
     check_tensor(x.rect, "rect", torch.int32, (n, 4), dev)
     if x.geo is not None:
         check_tensor(x.geo, "geo", torch.float32, (n, 6), dev)
+    if x.geo2 is not None:
+        if x.geo is None:
+            raise ValueError("geo2 needs geo")
+        check_tensor(x.geo2, "geo2", torch.float32, (n, 6), dev)
     if n == 0 or x.k_cap <= 0 or x.k_cap >= 1 << 31:
         raise ValueError(f"bad sizes: n={n}, k_cap={x.k_cap}")
     if x.rect.data_ptr() % 16:
@@ -142,6 +165,7 @@ def expand_keys(x: ExpandInputs):
         err = lib.scorp_expand_keys(
             x.starts.data_ptr(), x.limit.data_ptr(), x.rect.data_ptr(),
             x.geo.data_ptr() if x.geo is not None else None,
+            x.geo2.data_ptr() if x.geo2 is not None else None,
             n, x.k_cap, x.tiles_x, x.num_tiles, x.bits_g,
             keys.data_ptr(), kept.data_ptr(), stream,
         )

@@ -15,3 +15,4 @@ from .state import (  # noqa: F401
 )
 from .densify import accumulate_stats, count_densify_candidates, densify_and_prune, reset_opacity  # noqa: F401
 from .step import OptParams, StepMetrics, train_step  # noqa: F401
+from .step2d import Opt2DParams, train_step_2d  # noqa: F401

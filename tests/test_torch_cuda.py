@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
 version on the same CUDA inputs, at small edge-case shapes (empty tiles,
 tiles of 255/256/257/600 keys, a single gaussian, an overflowing key
-capacity, saturating pixels). Needs an NVIDIA GPU and nvcc; skipped
+capacity, saturating pixels; for the surfel kernels K4-K6 and K1's second
+ellipse, random surfel scenes with tiles of several key batches). Needs an NVIDIA GPU and nvcc; skipped
 elsewhere. On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -12,10 +13,26 @@ import pytest
 import torch
 
 from scorp_tpu_torch.core.camera import look_at_camera
-from scorp_tpu_torch.ops.raster import RasterConfig, preprocess, rasterize
+from scorp_tpu_torch.ops.raster import (
+    RasterConfig,
+    preprocess,
+    preprocess_surfel,
+    rasterize,
+    rasterize_surfel,
+    route_stream,
+    surfel_cull_ellipses,
+    surfel_prep_to_common,
+    surfel_table,
+)
 from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
 from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
 from scorp_tpu_torch.ops.raster.expand import expand_inputs, expand_keys, expand_keys_plain
+from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward, surfel_backward_plain
+from scorp_tpu_torch.ops.raster.surfel_composite import (
+    surfel_composite,
+    surfel_composite_plain,
+    surfel_composite_train,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +203,140 @@ def test_backward_wrapper_rejects_bad_inputs(dev):
         composite_backward(*args[:5] + [args[5][:, :2].contiguous()] + args[6:], tiles_x=2)
     with pytest.raises(ValueError):
         composite_backward(*args, tiles_x=3)
+
+
+# --- the surfel path: K1 with its second ellipse, K4, K5, K6 ----------------
+
+def _surfel_route(n, seed, device, opaque=False, w=96, h=72):
+    """A random surfel scene's table [N, 21] and routing (K1 with the conic
+    and the circle), on `device`."""
+    rng = np.random.default_rng(seed)
+    arrays = [
+        rng.uniform(-1, 1, (n, 3)),
+        np.exp(rng.normal(np.log(0.08), 0.5, (n, 2))),
+        rng.normal(size=(n, 4)),
+        np.full(n, 0.98) if opaque else rng.uniform(0.05, 0.99, n),
+        rng.uniform(0, 1, (n, 3)),
+    ]
+    xyz, scales, quats, opa, colors = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                                       for a in arrays)
+    cam = look_at_camera([0, 0.3, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.7, w, h, device=device)
+    prep = preprocess_surfel(xyz, opa, cam, colors_precomp=colors, scales=scales, quats=quats)
+    ell, circ = surfel_cull_ellipses(prep)
+    common = surfel_prep_to_common(prep)
+    route = route_stream(common, w, h, RasterConfig(max_keys=1 << 16), geo=ell, geo2=circ)
+    return surfel_table(prep), route, (common, ell, circ, w, h)
+
+
+@pytest.mark.parametrize("n,k_cap", [(1, 100), (300, 1 << 14), (3000, 1 << 16), (300, 777)])
+def test_expand_kernel_with_second_ellipse_matches_plain(dev, n, k_cap):
+    _, _, (common, ell, circ, w, h) = _surfel_route(n, n + k_cap, dev)
+    x = expand_inputs(common, w, h, k_cap, True, ell, circ)
+    keys_k, kept_k = expand_keys(x)
+    keys_p, kept_p = expand_keys_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(keys_k, keys_p)
+    assert int(kept_k) == int(kept_p)
+    # the union keeps at least what the conic alone keeps
+    assert int(kept_k) >= int(expand_keys(x._replace(geo2=None))[1])
+
+
+def _check_surfel_forward(got, ref, train):
+    """Every float channel within 1e-5 (absolute and relative: depth and
+    median are view depths ~3.5), the positions equal on >= 99.9% of pixels."""
+    for a, b in zip(got[:6], ref[:6]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    if train:
+        for a, b in zip(got[6:8], ref[6:8]):
+            assert float((a == b).float().mean()) >= 0.999
+        for a, b in zip(got[8:], ref[8:]):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,opaque", [(300, False), (3000, False), (3000, True)])
+def test_surfel_composite_kernels_match_plain(dev, n, opaque):
+    table, route, _ = _surfel_route(n, 7, dev, opaque=opaque)
+    data = table[route.gid].contiguous()
+    bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    args = (data, route.tile_start, route.tile_count, bg)
+    tiles_x = 6
+    assert int(route.tile_count.max()) > (256 if n == 3000 else 0)  # several key batches
+    k4 = surfel_composite(*args, tiles_x=tiles_x)
+    k5 = surfel_composite_train(*args, tiles_x=tiles_x)
+    torch.cuda.synchronize()
+    _check_surfel_forward(k4, surfel_composite_plain(*args, tiles_x=tiles_x), False)
+    _check_surfel_forward(k5, surfel_composite_plain(*args, tiles_x=tiles_x, train=True), True)
+    for a, b in zip(k4, k5[:6]):
+        assert torch.equal(a, b)
+    if opaque:
+        assert float(k5[1].mean()) > 0.5 and int((k5[10] < 1e-3).sum()) > 0  # pixels stop
+
+
+@pytest.mark.parametrize("n,opaque", [(300, False), (3000, True)])
+def test_surfel_backward_kernel_matches_plain(dev, n, opaque):
+    table, route, _ = _surfel_route(n, 8, dev, opaque=opaque)
+    data = table[route.gid].contiguous()
+    bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    tiles_x = 6
+    res = surfel_composite_train(data, route.tile_start, route.tile_count, bg, tiles_x=tiles_x)
+    rng = np.random.default_rng(9)
+    g = [torch.as_tensor(rng.normal(size=(route.tile_start.shape[0], c, 256)),
+                         dtype=torch.float32, device=dev) for c in (3, 1, 1, 3, 1, 1)]
+    n_contrib, n_med, wm, wm2, t_final = res[6:]
+    args = (data, route.gid, route.tile_start, route.tile_count, bg, *g, t_final, n_contrib,
+            n_med, wm, wm2, table.shape[0])
+    got = surfel_backward(*args, tiles_x=tiles_x)
+    ref = surfel_backward_plain(*args, tiles_x=tiles_x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    # atomics add in a run-dependent order: per column within 1e-4 of the
+    # column's largest magnitude
+    scale = ref.abs().amax(dim=0)
+    assert bool(((got - ref).abs() <= 1e-4 * scale + 1e-12).all())
+    assert float(scale.min()) > 0.0  # every column got gradient
+
+
+def test_rasterize_surfel_backward_on_cuda_matches_cpu(dev):
+    grads, outs = [], []
+    for device in (dev, torch.device("cpu")):
+        rng = np.random.default_rng(12)
+        arrays = [rng.uniform(-1, 1, (400, 3)), np.exp(rng.normal(np.log(0.08), 0.4, (400, 2))),
+                  rng.normal(size=(400, 4)), rng.uniform(0.05, 0.95, 400),
+                  rng.normal(0, 0.5, (400, 16, 3))]
+        xyz, scales, quats, opa, shs = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                                        .requires_grad_(True) for a in arrays)
+        cam = look_at_camera([0, 0.3, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.7, 96, 72,
+                             device=device)
+        out = rasterize_surfel(xyz, opa, cam, torch.zeros(3, device=device), shs=shs,
+                               sh_degree=3, scales=scales, quats=quats,
+                               cfg=RasterConfig(max_keys=1 << 15))
+        (out.color.square().mean() + out.alpha.mean() + 0.1 * out.depth_accum.mean()
+         + 0.1 * out.normal.square().mean() + 0.05 * out.depth_median.mean()
+         + 10.0 * out.distortion.mean()).backward()
+        grads.append([x.grad.cpu() for x in (xyz, scales, quats, opa, shs)])
+        outs.append(out.color.detach().cpu())
+    assert float((outs[0] - outs[1]).abs().max()) <= 5e-3
+    for a, b in zip(*grads):
+        scale = max(float(b.abs().max()), 1e-8)
+        torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0)
+
+
+def test_surfel_wrappers_reject_bad_inputs(dev):
+    table, route, _ = _surfel_route(50, 1, dev)
+    data = table[route.gid].contiguous()
+    bg = torch.zeros(3, device=dev)
+    with pytest.raises(TypeError):
+        surfel_composite(data.double(), route.tile_start, route.tile_count, bg, tiles_x=6)
+    with pytest.raises(ValueError):
+        surfel_composite_train(data[:, :10].contiguous(), route.tile_start, route.tile_count,
+                               bg, tiles_x=6)
+    with pytest.raises(ValueError):
+        surfel_composite(data, route.tile_start, route.tile_count, bg, tiles_x=7)
+    res = surfel_composite_train(data, route.tile_start, route.tile_count, bg, tiles_x=6)
+    g = [torch.zeros(route.tile_start.shape[0], c, 256, device=dev) for c in (3, 1, 1, 3, 1, 1)]
+    args = [data, route.gid, route.tile_start, route.tile_count, bg, *g, res[10], *res[6:10],
+            table.shape[0]]
+    with pytest.raises(TypeError):
+        surfel_backward(*args[:12] + [res[6].float()] + args[13:], tiles_x=6)
+    with pytest.raises(ValueError):
+        surfel_backward(*args[:5] + [g[0][:, :2].contiguous()] + args[6:], tiles_x=6)
