@@ -5,7 +5,8 @@
 
 Phases, in order (any failure exits non-zero):
   1. setup: print the card's name and power limit; build every CUDA kernel
-     from `scorp_tpu_torch/csrc/` (one nvcc per source, in parallel).
+     from `scorp_tpu_torch/csrc/` (one nvcc per source, in parallel) and
+     print each kernel's registers and spills from nvcc's report.
   2. full width, eval path: write a COLMAP scene (4 views at 1600x1066, 2
      test views; its points3D.bin holds the centres and colours of a
      250k-Gaussian SH-3 scene drawn from `--seed` with bench.py's room-scale
@@ -21,9 +22,12 @@ Phases, in order (any failure exits non-zero):
      render on the GPU against the plain path on the CPU.
   4. at full width, on the eval path's inputs: the same K1 and K2 checks,
      K1 against the expansion golden (0.8 golden <= kept <= golden + 1000);
-     then times: each kernel (CUDA-event median) beside its plain version and
-     its bound, each stage of a frame, the ATen ops a frame dispatches, and
-     the device's busy time per frame from a torch.profiler trace.
+     then times: each kernel beside its plain version and its bound, each
+     stage of a frame, the ATen ops a frame dispatches, and the device's
+     busy time per frame from a torch.profiler trace. A kernel's "ms" is its
+     device time from a profiler (CUPTI) trace of 20 calls; "ms_per_call"
+     is the CUDA-event median of 20 calls, each after a synchronize, which
+     also counts the host's launch work while the device waits.
   5. K3 (the backward compositor) against its plain version at 50k /
      800x600 on the differentiable rasterizer's inputs with cotangents from
      `--seed`: d_table per column within 1e-4 x the column's largest value
@@ -68,7 +72,11 @@ Phases, in order (any failure exits non-zero):
      bench.py's 2DGS measurement (Opt2DParams(lambda_dist=100) at iteration
      8000, so the normal and distortion losses are on): its time and parts,
      ATen ops, device busy time, peak memory, and K5 and K6 on its inputs
-     against their plain versions, with times and bounds.
+     against their plain versions, with times and bounds; and K5's and
+     K6's (warp, key) slots on that stream (walked, left by the warp mask,
+     left to hit() by the pre-test, with a lane past the exact alpha and z
+     tests), counted with the plain surfel_hit, surfel_warp_mask and
+     surfel_pretest on the card.
 The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
@@ -84,6 +92,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -108,6 +117,25 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(text: str):
+    """(kernel, line) for each register and spill line of nvcc's
+    `-Xptxas -v` report, the kernel named from the entry function that
+    precedes it (its template argument kept, e.g. <1> for K5)."""
+    kernel = "?"
+    for line in text.splitlines():
+        if "entry function '_ZN" in line:
+            # the nested name: <length><identifier> pieces, the kernel last
+            i = line.index("'_ZN") + 4
+            while (m := re.match(r"\d+", line[i:])) is not None:
+                j = i + m.end()
+                kernel, i = line[j:j + int(m.group())], j + int(m.group())
+            args = re.match(r"I((?:Lb[01]E)+)E", line[i:])
+            if args:
+                kernel += "<" + ",".join(re.findall(r"Lb([01])E", args.group(1))) + ">"
+        elif "registers" in line or "spill" in line:
+            yield kernel, line.strip()
 
 
 def bench_scene_arrays(n: int, seed: int):
@@ -209,6 +237,29 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, name: str, reps: int = 20) -> float:
+    """Device time in ms per call of the CUDA kernels whose name contains
+    `name`, over `reps` calls of fn() after a warm-up, from a torch.profiler
+    (CUPTI) trace: the kernel alone, without the host's work per call
+    (allocating outputs, the ctypes launch) that `cuda_ms` counts when the
+    device waits for it. Raises if no such kernel ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key)
+    if total <= 0:
+        raise AssertionError(f"no kernel named like {name!r} in the trace")
+    return total / 1e3 / reps
 
 
 def dispatched_ops(fn) -> int:
@@ -464,7 +515,8 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
           f"K1 full width: kept {kept} within [0.8, 1] x golden {golden} (+1000)")
     in_range = int(torch.clamp_max(x.total, cfg.max_keys))
 
-    k1_ms = cuda_ms(lambda: expand_keys(x), 20)
+    k1_ms = kernel_ms(lambda: expand_keys(x), "::expand_keys_kernel")
+    k1_call_ms = cuda_ms(lambda: expand_keys(x), 20)
     k1_plain_ms = cuda_ms(lambda: expand_keys_plain(x), 5)
     k1_bytes = cfg.max_keys * 8 + n * (4 + 16 + 24) + 8
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, in_range * K1_FLOPS_PER_KEY / F32_FLOPS_PER_S)
@@ -473,7 +525,8 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     bins = bin_stream(prep, w, h, cfg)
     tiles_x = grid_dims(w, h)[0]
     args2 = (bins.data, bins.tile_start, bins.tile_count, bg)
-    k2_ms = cuda_ms(lambda: composite(*args2, tiles_x=tiles_x), 20)
+    k2_ms = kernel_ms(lambda: composite(*args2, tiles_x=tiles_x), "::composite_kernel")
+    k2_call_ms = cuda_ms(lambda: composite(*args2, tiles_x=tiles_x), 20)
     k2_plain_ms = cuda_ms(lambda: composite_plain(*args2, tiles_x=tiles_x), 1)
     k2_out = composite(*args2, tiles_x=tiles_x, track_ncontrib=True)
     k2_err = check_composite(
@@ -492,12 +545,12 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
         "preprocess": cuda_ms(prep_fn, 5),
         "depth argsort + prefix sums": cuda_ms(
             lambda: expand_inputs(prep, w, h, cfg.max_keys, cull=True), 5),
-        "K1 expand_keys": k1_ms,
+        "K1 expand_keys": k1_call_ms,
         "sort keys": cuda_ms(lambda: torch.sort(keys), 5),
         "stream gather": cuda_ms(
             lambda: stream_table(prep)[x.order][g_sorted[:cfg.stream_cap]].contiguous(), 5),
         "tile bounds": cuda_ms(lambda: _tile_bounds(s_keys >> x.bits_g, x.num_tiles), 5),
-        "K2 composite": k2_ms,
+        "K2 composite": k2_call_ms,
     }
     print("  stages (ms, CUDA-event medians): " + json.dumps(stages))
     print(f"  ATen ops dispatched per call: preprocess {dispatched_ops(prep_fn)}, "
@@ -510,17 +563,19 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
             print(f"    {ms:8.4f} ms  {name}")
     else:
         print("  device busy per frame: not measured (the trace held no CUDA events)")
-    print(f"  K1: {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound {1e3 * k1_bound:.4f} ms "
-          f"({x.k_cap} key slots, {in_range} in range, {kept} kept, {n} gaussians)")
-    print(f"  K2: {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms, bound "
+    print(f"  K1: {k1_ms:.4f} ms ({k1_call_ms:.4f} per call), plain {k1_plain_ms:.3f} ms, bound "
+          f"{1e3 * k1_bound:.4f} ms ({x.k_cap} key slots, {in_range} in range, {kept} kept, "
+          f"{n} gaussians)")
+    print(f"  K2: {k2_ms:.4f} ms ({k2_call_ms:.4f} per call), plain {k2_plain_ms:.3f} ms, bound "
           f"{1e3 * max(k2_bytes_s, k2_ops_s):.4f} ms ({streamed} streamed keys, "
           f"{pairs} (pixel, key) pairs up to n_contrib, {n_tiles} tiles)")
     return {
         "frame_ms": frame_ms,
         "stages": stages,
-        "k1": dict(ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=1e3 * k1_bound,
-                   bound_by=k1_bound_by, kept=kept, golden=golden, err=k1_err),
-        "k2": dict(ms=k2_ms, plain_ms=k2_plain_ms, err=k2_err,
+        "k1": dict(ms=k1_ms, ms_per_call=k1_call_ms, plain_ms=k1_plain_ms,
+                   bound_ms=1e3 * k1_bound, bound_by=k1_bound_by, kept=kept, golden=golden,
+                   err=k1_err),
+        "k2": dict(ms=k2_ms, ms_per_call=k2_call_ms, plain_ms=k2_plain_ms, err=k2_err,
                    bound_ms=1e3 * max(k2_bytes_s, k2_ops_s),
                    bound_by="bytes" if k2_bytes_s >= k2_ops_s else "operations"),
     }
@@ -778,11 +833,13 @@ def phase_train_step(args, device):
         k3_args, tiles_x, route, k2_out = backward_inputs(prep, w, h, cfg, args.seed + 5,
                                                           device)
         k3_err = check_backward(k3_args, tiles_x, "full width")
-        k3_ms = cuda_ms(lambda: composite_backward(*k3_args, tiles_x=tiles_x), 20)
+        k3_ms = kernel_ms(lambda: composite_backward(*k3_args, tiles_x=tiles_x),
+                          "::composite_backward_kernel")
+        k3_call_ms = cuda_ms(lambda: composite_backward(*k3_args, tiles_x=tiles_x), 20)
         k3_plain_ms = cuda_ms(lambda: composite_backward_plain(*k3_args, tiles_x=tiles_x), 1)
         k2_args = (k3_args[0], *k3_args[2:5])  # data, tile_start, tile_count, bg
-        k2_train_ms = cuda_ms(lambda: composite(*k2_args, tiles_x=tiles_x, track_ncontrib=True,
-                                                with_t_final=True), 20)
+        k2_train_ms = kernel_ms(lambda: composite(*k2_args, tiles_x=tiles_x, track_ncontrib=True,
+                                                  with_t_final=True), "::composite_kernel")
         nc = k2_out[3][:, 0].to(torch.int64)                                # [T, 256]
         count = route.tile_count.to(torch.int64)[:, None]
         pairs = int(torch.minimum(nc, count).sum())
@@ -794,7 +851,7 @@ def phase_train_step(args, device):
     k3_ops = pairs * K3_FLOPS_PER_PAIR + atomics
     k3_bytes = streamed * 44 + n_tiles * 8 + 12 + n_tiles * 256 * 28 + n_rows * 40
     k3_bytes_s, k3_ops_s = k3_bytes / HBM_BYTES_PER_S, k3_ops / F32_FLOPS_PER_S
-    print(f"  K3: {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound "
+    print(f"  K3: {k3_ms:.4f} ms ({k3_call_ms:.4f} per call), plain {k3_plain_ms:.3f} ms, bound "
           f"{1e3 * max(k3_bytes_s, k3_ops_s):.4f} ms ({streamed} streamed keys, {pairs} "
           f"(pixel, key) pairs up to n_contrib, {atomics} atomic adds at most = "
           f"{100 * atomics / k3_ops:.2f}% of its operations, {n_rows} table rows)")
@@ -803,7 +860,7 @@ def phase_train_step(args, device):
         "step_ms": step_ms, "parts": parts, "ops": ops, "busy_ms": busy_ms if top else None,
         "loss_ms": loss_ms, "loss_busy_ms": loss_busy,
         "peak_mib": peak / 2**20, "per_step": per_step, "k2_train_ms": k2_train_ms,
-        "k3": dict(ms=k3_ms, plain_ms=k3_plain_ms, err=k3_err,
+        "k3": dict(ms=k3_ms, ms_per_call=k3_call_ms, plain_ms=k3_plain_ms, err=k3_err,
                    bound_ms=1e3 * max(k3_bytes_s, k3_ops_s),
                    bound_by="bytes" if k3_bytes_s >= k3_ops_s else "operations"),
     }
@@ -942,6 +999,70 @@ def surfel_pairs(n_contrib, route):
     return pairs, warp_keys
 
 
+def surfel_slot_counts(data, route, n_contrib, tiles_x: int, chunk: int = 32):
+    """The (warp, key) slots K5 and K6 walk on a stream, counted from the
+    plain `surfel_hit`, `surfel_warp_mask` and `surfel_pretest` on the card,
+    chunked over keys (the kernels count nothing): {kernel: {"walked",
+    "mask", "pretest", "live"}}: the slots walked, those the warp mask
+    leaves (the warp loads the key's geometry), those in which some active
+    lane passes the pre-test (hit() runs), and those in which some active
+    lane clears the exact tests (alpha >= 1/255, z >= 0.2). A K6 lane is
+    active below its n_contrib and its warp walks up to the warp's largest;
+    a K5 lane is active up to the key that ends its pixel (the first key at
+    or after n_contrib that clears the tests) and its warp walks until every
+    lane has ended."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster.composite import PIXELS, TILE, pixel_coords
+    from scorp_tpu_torch.ops.raster.surfel import ALPHA_MIN, NEAR_PLANE
+    from scorp_tpu_torch.ops.raster.surfel_composite import (
+        surfel_hit, surfel_pretest, surfel_warp_mask,
+    )
+
+    dev = data.device
+    count = route.tile_count.to(torch.int64)
+    n_tiles = count.shape[0]
+    nc = n_contrib[:, 0].to(torch.int64)                                   # [T, P]
+    px, py = pixel_coords(n_tiles, tiles_x, torch.float32, dev)
+    t = torch.arange(n_tiles, device=dev)
+    x0, y0 = (t % tiles_x) * TILE, (t // tiles_x) * TILE
+    max_count = int(count.max())
+
+    def chunks():
+        for c0 in range(0, max_count, chunk):
+            j = torch.arange(c0, min(c0 + chunk, max_count), device=dev)
+            valid = (j[None, :] < count[:, None])[..., None]                # [T, C, 1]
+            idx = (route.tile_start.to(torch.int64)[:, None] + j[None, :]).clamp_max(
+                data.shape[0] - 1)
+            rows = data[idx]
+            hit = surfel_hit(rows, px, py)
+            passes = valid & (hit["alpha"] >= ALPHA_MIN) & (hit["z"] >= NEAR_PLANE)
+            yield (j, passes, valid & surfel_pretest(rows, px, py),
+                   surfel_warp_mask(rows, x0, y0))
+
+    with torch.no_grad():
+        end = count[:, None].expand(-1, PIXELS).clone()                     # K5 lane ends
+        found = torch.zeros_like(end, dtype=torch.bool)
+        for j, passes, _, _ in chunks():
+            cand = passes & (j[None, :, None] >= nc[:, None, :])
+            first = j[0] + cand.to(torch.int32).argmax(dim=1) + 1
+            end = torch.where(cand.any(dim=1) & ~found, first, end)
+            found |= cand.any(dim=1)
+        limits = {"K5": (end, end.view(n_tiles, 8, 32).amax(-1)),
+                  "K6": (nc, torch.minimum(nc.view(n_tiles, 8, 32).amax(-1), count[:, None]))}
+        out = {k: dict(walked=0, mask=0, pretest=0, live=0) for k in limits}
+        for j, passes, pre, mask in chunks():
+            for name, (lane_end, warp_end) in limits.items():
+                active = j[None, :, None] < lane_end[:, None, :]                 # [T, C, P]
+                walked = j[None, :, None] < warp_end[:, None, :]                 # [T, C, 8]
+                out[name]["walked"] += int(walked.sum())
+                out[name]["mask"] += int((walked & mask).sum())
+                for key, lanes in (("pretest", pre), ("live", passes)):
+                    warp_any = (lanes & active).view(n_tiles, -1, 8, 32).any(-1)
+                    out[name][key] += int((warp_any & walked).sum())
+    return out
+
+
 def bound_of(nbytes: float, ops: float):
     """(least time in ms, "bytes" or "operations") on the H100's published rates."""
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
@@ -1066,7 +1187,9 @@ def phase_surfel_eval(args, device, scene_dir):
         surfel_composite(*a4, tiles_x=tiles_x), surfel_composite_plain(*a4, tiles_x=tiles_x),
         "full width", "K4"))
     n_contrib = surfel_composite_train(*a4, tiles_x=tiles_x)[6]
-    k4_ms = cuda_ms(lambda: surfel_composite(*a4, tiles_x=tiles_x), 20)
+    k4_ms = kernel_ms(lambda: surfel_composite(*a4, tiles_x=tiles_x),
+                      "::surfel_composite_kernel<false>")
+    k4_call_ms = cuda_ms(lambda: surfel_composite(*a4, tiles_x=tiles_x), 20)
     k4_plain_ms = cuda_ms(lambda: surfel_composite_plain(*a4, tiles_x=tiles_x), 1)
     bound_ms, bound_by, pairs, streamed = surfel_forward_bound(route, n_contrib, 10)
 
@@ -1076,7 +1199,8 @@ def phase_surfel_eval(args, device, scene_dir):
     frame_ms = cuda_ms(frame, 5)
     ops = dispatched_ops(frame)
     busy_ms, top = device_profile(frame, 5)
-    print(f"  K4: {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+    print(f"  K4: {k4_ms:.4f} ms ({k4_call_ms:.4f} per call), plain {k4_plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms "
           f"({bound_by}; {streamed} streamed keys of {int(x.total)} rect keys, {pairs} "
           f"(pixel, key) pairs up to n_contrib, {route.tile_start.shape[0]} tiles)")
     print(f"  2DGS frame through render2d(): {frame_ms:.3f} ms (CUDA-event median of 5), "
@@ -1088,8 +1212,8 @@ def phase_surfel_eval(args, device, scene_dir):
             print(f"    {ms:8.4f} ms  {name}")
     else:
         print("  device busy per frame: not measured (the trace held no CUDA events)")
-    return launches, {"k4": dict(ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, err=k4_err),
+    return launches, {"k4": dict(ms=k4_ms, ms_per_call=k4_call_ms, plain_ms=k4_plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by, err=k4_err),
                       "k1_err": k1_err, "frame_ms": frame_ms}
 
 
@@ -1285,23 +1409,38 @@ def phase_surfel_train_step(args, device):
     k5_err = check_surfel_forward(
         k5, surfel_composite_plain(*a5, tiles_x=tiles_x, train=True), "full width", "K5")
     k6_err = check_surfel_backward(k6_args, tiles_x, "full width")
-    k5_ms = cuda_ms(lambda: surfel_composite_train(*a5, tiles_x=tiles_x), 20)
+    k5_ms = kernel_ms(lambda: surfel_composite_train(*a5, tiles_x=tiles_x),
+                      "::surfel_composite_kernel<true>")
+    k5_call_ms = cuda_ms(lambda: surfel_composite_train(*a5, tiles_x=tiles_x), 20)
     k5_plain_ms = cuda_ms(lambda: surfel_composite_plain(*a5, tiles_x=tiles_x, train=True), 1)
-    k6_ms = cuda_ms(lambda: surfel_backward(*k6_args, tiles_x=tiles_x), 20)
+    k6_ms = kernel_ms(lambda: surfel_backward(*k6_args, tiles_x=tiles_x),
+                      "::surfel_backward_kernel")
+    k6_call_ms = cuda_ms(lambda: surfel_backward(*k6_args, tiles_x=tiles_x), 20)
     k6_plain_ms = cuda_ms(lambda: surfel_backward_plain(*k6_args, tiles_x=tiles_x), 1)
     k5_bound, k5_by, pairs, streamed = surfel_forward_bound(route, k5[6], 15)
     k6_bound, k6_by, _, atomics = surfel_backward_bound(route, k5[6], table.shape[0])
-    print(f"  K5: {k5_ms:.4f} ms, plain {k5_plain_ms:.3f} ms, bound {k5_bound:.4f} ms ({k5_by}; "
-          f"{streamed} streamed keys, {pairs} (pixel, key) pairs up to n_contrib)")
-    print(f"  K6: {k6_ms:.4f} ms, plain {k6_plain_ms:.3f} ms, bound {k6_bound:.4f} ms ({k6_by}; "
-          f"{atomics} atomic adds at most, {table.shape[0]} table rows)")
+    print(f"  K5: {k5_ms:.4f} ms ({k5_call_ms:.4f} per call), plain {k5_plain_ms:.3f} ms, bound "
+          f"{k5_bound:.4f} ms ({k5_by}; {streamed} streamed keys, {pairs} (pixel, key) pairs up "
+          "to n_contrib)")
+    print(f"  K6: {k6_ms:.4f} ms ({k6_call_ms:.4f} per call), plain {k6_plain_ms:.3f} ms, bound "
+          f"{k6_bound:.4f} ms ({k6_by}; {atomics} atomic adds at most, {table.shape[0]} table "
+          "rows)")
+    slots = surfel_slot_counts(data, route, k5[6], tiles_x)
+    for name, s in slots.items():
+        walked = max(s["walked"], 1)
+        print(f"  {name} (warp, key) slots: {s['walked']} walked, {s['mask']} left by the warp "
+              f"mask, {s['pretest']} left to hit() by the pre-test, {s['live']} with a lane past "
+              f"the exact tests; dead share {1 - s['live'] / walked:.4f}, skipped by the mask "
+              f"{1 - s['mask'] / walked:.4f}, by the mask or the pre-test "
+              f"{1 - s['pretest'] / walked:.4f}")
     return {
+        "slots": slots,
         "step_ms": step_ms, "parts": parts, "ops": ops, "busy_ms": busy_ms if top else None,
         "peak_mib": peak / 2**20, "per_step": per_step,
-        "k5": dict(ms=k5_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound, bound_by=k5_by,
-                   err=k5_err),
-        "k6": dict(ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound, bound_by=k6_by,
-                   err=k6_err),
+        "k5": dict(ms=k5_ms, ms_per_call=k5_call_ms, plain_ms=k5_plain_ms, bound_ms=k5_bound,
+                   bound_by=k5_by, err=k5_err),
+        "k6": dict(ms=k6_ms, ms_per_call=k6_call_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound,
+                   bound_by=k6_by, err=k6_err),
     }
 
 
@@ -1347,10 +1486,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"  built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
-    for name, text in reports.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for name in _build.SIGNATURES:  # nvcc's report, kept beside each library
+        text = _build.library_path(name).with_suffix(".log").read_text()
+        for kernel, line in ptxas_lines(text):
+            print(f"  {name}: {kernel}: {line}")
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
@@ -1402,7 +1541,7 @@ def main(argv=None) -> int:
     shutil.rmtree(WORK, ignore_errors=True)
 
     def timed(d):
-        return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        return {k: d[k] for k in ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by")}
 
     kernels = [
         {"name": "K1 expand_keys", "route": "cuda", "source": K1_SOURCE,
@@ -1426,11 +1565,13 @@ def main(argv=None) -> int:
          "max_abs_err": eval2d["k4"]["err"], **timed(eval2d["k4"]), "library_ms": None},
         {"name": "K5 surfel_composite_train", "route": "cuda", "source": SK_SOURCE,
          "replaces": K5_REPLACES, "launches": train2d_launches["surfel_composite_train"],
-         "max_abs_err": k5_err, **timed(step2d["k5"]), "library_ms": None},
+         "max_abs_err": k5_err, **timed(step2d["k5"]), "library_ms": None,
+         "slots": step2d["slots"]["K5"]},
         {"name": "K6 surfel_backward", "route": "cuda", "source": K6_SOURCE,
          "replaces": K6_REPLACES, "launches": train2d_launches["surfel_backward"],
          "max_abs_err": k6_err[0], "max_rel_err_per_column": k6_err[1],
-         **timed(step2d["k6"]), "library_ms": None},
+         **timed(step2d["k6"]), "library_ms": None,
+         "slots": step2d["slots"]["K6"]},
     ]
     print(f"  training app: loss {train['loss_first']:.6f} -> {train['loss_last']:.6f}, "
           f"{train['wall_s']:.2f} s; train_step {step['step_ms']:.3f} ms")

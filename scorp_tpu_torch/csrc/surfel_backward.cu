@@ -37,25 +37,40 @@
 // -fmad=false flags, so the 1/255 and z >= 0.2 tests agree with K5's bit for
 // bit; keys failing them, and keys at positions >= n_contrib (the 1-based
 // last contributor, counting skipped keys), emit nothing. Slots past a
-// tile's range are never read.
+// tile's range are never read. The divisions by 1 - alpha, sz and z are
+// multiplications by one reciprocal each (m shares z's), so K6's T, m and
+// ds differ from the plain version's by an ulp or so; it is held per column
+// at 1e-4 of the column's largest value.
 //
-// What bounds it on an H100: the per (pixel, key) arithmetic up to each
-// pixel's n_contrib (~110 f32 operations, three divisions and one exp2 per
-// pair), then the atomics: each warp that has a contributing pixel for a
-// key adds 21 floats into the key's surfel row, up to 8 warps x 21 atomics
-// per key. Bytes are small beside both: each key is read once (88 B with
-// its gid).
+// What bounds it on an H100: the instruction rate. Every (warp, key) slot in
+// which a lane emits pays the geometry, hit(), the ~110 f32 operations of
+// the gradient and a reduction of its 21 partials over the warp; at full
+// width 65% of the walked slots emit nothing. Bytes are small beside it:
+// each key is read once (88 B with its gid).
 //
 // Design: as K3, one block of 256 threads per tile, one thread per pixel.
 // The block takes the tile's largest n_contrib and stages keys 256 at a time
 // from the top down by a coalesced copy; every thread reads the same key at
-// once, a broadcast. A key's 21 partial sums are reduced across the warp
-// with __shfl_xor_sync only when some lane contributes (__any_sync), and
-// lane 0 adds them with atomicAdd. This replaces the TPU's chunk-grid
-// gradient blocks, side carries and compact_block_scatter (and with them the
-// TPU-only bwd_block_frac knob), which existed because a TPU grid has no
-// atomics; the order of the atomic adds changes from run to run, so K6 is
-// not bit-identical to its plain version.
+// once, a broadcast, and a warp skips the keys above its own largest
+// n_contrib. Then:
+// - the dead slots are skipped as in K4/K5 (surfel_common.cuh): per batch,
+//   thread i evaluates key i's warp_mask(), and a warp whose bit is clear
+//   skips the key for one shared byte; then the division-free may_hit()
+//   runs before hit(), and a warp in which no lane below its n_contrib
+//   passes it skips the key;
+// - a key in which some lane emits is reduced by a reduce-scatter: the 21
+//   partials padded to 32, five rounds that exchange 16, 8, 4, 2 and 1
+//   values (31 shuffles), after which lane c holds the warp's column c;
+// - lanes 0-20 add their columns into the key's row of a per-block
+//   accumulator in shared memory (s_acc[256][21]), where the 8 warps meet;
+//   after the batch, 21 consecutive threads per touched row add it to
+//   d_table with one atomicAdd each (the -2 ln2 of column 20 applied
+//   there): one coalesced RED per row and block.
+// This replaces the TPU's chunk-grid gradient blocks, side carries and
+// compact_block_scatter (and with them the TPU-only bwd_block_frac knob),
+// which existed because a TPU grid has no atomics; the order of the atomic
+// adds changes from run to run, so K6 is not bit-identical to its plain
+// version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,9 +84,18 @@ using namespace surfel;
 constexpr int kWarps = kPix / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+// one round of the reduce-scatter: a lane keeps the half of r[0, 2H) that
+// its lane bit H selects, sends the other half to lane ^ H and adds what it
+// receives, so r[0, H) then holds partial sums of its half's columns
+template <int H>
+__device__ __forceinline__ void exchange_halves(float (&r)[32], int lane) {
+  const bool upper = lane & H;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? r[i] : r[i + H];
+    const float keep = upper ? r[i + H] : r[i];
+    r[i] = keep + __shfl_xor_sync(kFull, send, H);
+  }
 }
 
 __global__ void __launch_bounds__(kPix) surfel_backward_kernel(
@@ -85,13 +109,17 @@ __global__ void __launch_bounds__(kPix) surfel_backward_kernel(
     const float* __restrict__ wm_total, const float* __restrict__ wm2_total, int tiles_x,
     float* __restrict__ d_table) {
   __shared__ float s_keys[kPix * kCols];
+  __shared__ float s_acc[kPix * kCols];
   __shared__ int s_gid[kPix];
+  __shared__ unsigned char s_mask[kPix];
   __shared__ int s_max[kWarps];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const float px = (float)((t % tiles_x) * kTile + (tid % kTile));
-  const float py = (float)((t / tiles_x) * kTile + (tid / kTile));
+  const int x0 = (t % tiles_x) * kTile, y0 = (t / tiles_x) * kTile;
+  const float px = (float)(x0 + tid % kTile);
+  const float py = (float)(y0 + tid / kTile);
+  const unsigned warp_bit = 1u << (tid >> 5);
   const int start = tile_start[t];
   const int count = tile_count[t];
   const size_t p = (size_t)t * kPix + tid;
@@ -99,12 +127,13 @@ __global__ void __launch_bounds__(kPix) surfel_backward_kernel(
   const int nc = n_contrib[p];
   const int nm = n_med[p];
 
-  // the tile's last key that any pixel included
-  int mx = nc;
-  for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(kFull, mx, o));
-  if (lane == 0) s_max[tid >> 5] = mx;
+  for (int i = tid; i < kPix * kCols; i += kPix) s_acc[i] = 0.0f;
+  // the warp's and the tile's last key that any pixel included
+  int warp_mx = nc;
+  for (int o = 16; o > 0; o >>= 1) warp_mx = max(warp_mx, __shfl_xor_sync(kFull, warp_mx, o));
+  if (lane == 0) s_max[tid >> 5] = warp_mx;
   __syncthreads();
-  mx = s_max[0];
+  int mx = s_max[0];
   for (int w = 1; w < kWarps; ++w) mx = max(mx, s_max[w]);
   mx = min(mx, count);
 
@@ -124,26 +153,34 @@ __global__ void __launch_bounds__(kPix) surfel_backward_kernel(
   for (int hi = mx; hi > 0; hi -= kPix) {
     const int lo = max(0, hi - kPix);
     const int n_batch = hi - lo;
-    __syncthreads();  // every thread is done with the previous batch
+    __syncthreads();  // every thread is done with the previous batch and its flush
     const float* src = data + ((size_t)start + lo) * kCols;
     for (int i = tid; i < n_batch * kCols; i += kPix) s_keys[i] = src[i];
-    if (tid < n_batch) s_gid[tid] = gid[start + lo + tid];
+    if (tid < n_batch) {
+      s_gid[tid] = gid[start + lo + tid];
+      s_mask[tid] = (unsigned char)warp_mask(src + tid * kCols, x0, y0);
+    }
     __syncthreads();
-    for (int jj = n_batch - 1; jj >= 0; --jj) {
+    for (int jj = min(n_batch, warp_mx - lo) - 1; jj >= 0; --jj) {
+      if (!(s_mask[jj] & warp_bit)) continue;  // warp-uniform
       const float* key = s_keys + jj * kCols;
-      float r[kCols];
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) r[i] = 0.0f;
-      bool emit = false;
       const int pos = lo + jj;
-      if (pos < nc) {
-        const Hit h = hit(key, px, py);
+      const Geo g = geo(key, px, py);
+      const bool may = pos < nc && may_hit(key, g);
+      if (!__any_sync(kFull, may)) continue;  // warp-uniform
+      float r[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) r[i] = 0.0f;
+      bool emit = false;
+      if (may) {
+        const Hit h = hit(key, g);
         if (h.alpha >= kAlphaMin && h.z >= kNear) {
           emit = true;
-          const float one_minus = 1.0f - h.alpha;
-          const float t_before = trans / one_minus;
+          const float inv_om = 1.0f / (1.0f - h.alpha);
+          const float t_before = trans * inv_om;
           const float w = h.alpha * t_before;
-          const float m = distortion_m(h.z);
+          const float izm = 1.0f / fmaxf(h.z, 1e-6f);
+          const float m = kFF - kFFN * izm;
           const float wm = w * m;
           const float a_bar = a_all - w;
           const float d_bar = d_all - wm;
@@ -151,8 +188,7 @@ __global__ void __launch_bounds__(kPix) surfel_backward_kernel(
           const float psi = m * m * a_bar + d2_bar - 2.0f * m * d_bar;
           const float uu = key[14] * gc0 + key[15] * gc1 + key[16] * gc2 + key[17] * gn0 +
                            key[18] * gn1 + key[19] * gn2 + h.z * gd + gdist * psi;
-          const float dalpha = t_before * uu - (suffix + gt_term) / one_minus;
-          const float izm = 1.0f / fmaxf(h.z, 1e-6f);
+          const float dalpha = t_before * uu - (suffix + gt_term) * inv_om;
           const float dmdz = kFFN * izm * izm;
           float dz = w * gd + gdist * 2.0f * w * (m * a_bar - d_bar) * dmdz;
           if (pos + 1 == nm) dz += gmed;
@@ -164,14 +200,15 @@ __global__ void __launch_bounds__(kPix) surfel_backward_kernel(
             r[9] = h.u * dz;
             r[10] = h.v * dz;
           } else {
-            r[12] = 2.0f * kFilterInvSquare * h.dx * drho;
-            r[13] = 2.0f * kFilterInvSquare * h.dy * drho;
+            r[12] = 2.0f * kFilterInvSquare * g.dx * drho;
+            r[13] = 2.0f * kFilterInvSquare * g.dy * drho;
           }
           if (!(h.u_raw >= -1e3f && h.u_raw <= 1e3f)) du = 0.0f;
           if (!(h.v_raw >= -1e3f && h.v_raw <= 1e3f)) dv = 0.0f;
-          const float dsx = du / h.sz;
-          const float dsy = dv / h.sz;
-          const float dsz = fabsf(h.s_z) > 1e-9f ? -(h.u * du + h.v * dv) / h.sz : 0.0f;
+          const float isz = 1.0f / g.sz;
+          const float dsx = du * isz;
+          const float dsy = dv * isz;
+          const float dsz = fabsf(g.s_z) > 1e-9f ? -(h.u * du + h.v * dv) * isz : 0.0f;
           r[0] = dsx * px;
           r[1] = dsx * py;
           r[2] = dsx;
@@ -193,16 +230,23 @@ __global__ void __launch_bounds__(kPix) surfel_backward_kernel(
           trans = t_before;
         }
       }
-      if (__any_sync(kFull, emit)) {  // warp-uniform: jj is block-uniform
-#pragma unroll
-        for (int i = 0; i < kCols; ++i) r[i] = warp_sum(r[i]);
-        if (lane == 0) {
-          float* row = d_table + (size_t)s_gid[jj] * kCols;
-#pragma unroll
-          for (int i = 0; i < kCols - 1; ++i) atomicAdd(row + i, r[i]);
-          atomicAdd(row + kCols - 1, -2.0f * kLn2 * r[kCols - 1]);
-        }
-      }
+      if (!__any_sync(kFull, emit)) continue;
+      exchange_halves<16>(r, lane);
+      exchange_halves<8>(r, lane);
+      exchange_halves<4>(r, lane);
+      exchange_halves<2>(r, lane);
+      exchange_halves<1>(r, lane);
+      if (lane < kCols) atomicAdd(s_acc + jj * kCols + lane, r[0]);
+    }
+    __syncthreads();
+    // flush the batch's rows: consecutive threads on consecutive columns
+    for (int i = tid; i < n_batch * kCols; i += kPix) {
+      const float v = s_acc[i];
+      if (v == 0.0f) continue;
+      s_acc[i] = 0.0f;
+      const int c = i % kCols;
+      atomicAdd(d_table + (size_t)s_gid[i / kCols] * kCols + c,
+                c == kCols - 1 ? -2.0f * kLn2 * v : v);
     }
   }
 }

@@ -25,18 +25,33 @@
 // 1/255 or z < 0.2 are skipped; a key is included iff T (1 - alpha) >=
 // 1e-4, and the first key that would cross that threshold ends the pixel.
 //
-// What bounds it on an H100: the per (pixel, key) arithmetic, ~45 f32
-// operations, two divisions and one exp2 per evaluated pair, until the
-// pixels saturate; each key is read from device memory once (84 B), so bytes
-// are small beside it.
+// What bounds it on an H100: the instruction rate, one warp walking the keys
+// in order per 2 pixel rows. A walked (warp, key) slot with a live lane
+// costs ~150 warp instructions (the geometry's 12 shared loads and 20 f32
+// operations, hit() with two divisions and an exp2, the blend with the
+// distortion's division); at full width 65% of the walked slots have no
+// lane at alpha >= 1/255, and each key is read from device memory once
+// (84 B), so bytes are small beside the instructions.
 //
-// Design: as K2, one block of 256 threads per tile, one thread per pixel.
-// The block stages 256 keys at a time in shared memory (21.5 KB) with a
-// coalesced copy of the contiguous rows, and every thread walks them in
-// order, reading the same key at once (a shared-memory broadcast); the
-// running sums live in registers and the block stops once every pixel is
-// done. The TPU kernel evaluated chunks of keys as [256, C] vector blocks,
-// with the transmittance as a log-space triangular matmul scan and the
+// Design: as K2, one block of 256 threads per tile, one thread per pixel,
+// 256 keys at a time in shared memory (21.5 KB), every thread reading the
+// same key at once (a broadcast); the running sums live in registers. The
+// dead slots are skipped before their geometry is paid for
+// (surfel_common.cuh):
+// - per batch, thread i evaluates key i's warp_mask(); a warp whose bit is
+//   clear skips the key for one shared byte (52% of the walked slots at
+//   full width);
+// - a warp evaluates the division-free may_hit() next and skips the key
+//   when no lane that is not done passes it (the exact tests in hit()
+//   still decide for the others, so the included keys are those of the
+//   plain version); a warp whose lanes are all done leaves the batch.
+// The batches are double-buffered: the next 256 keys are copied with
+// cp.async (4 B per thread and copy, coalesced; rows are 84 B, so no 16 B
+// alignment holds for TMA) and their masks evaluated while the current ones
+// are blended, one barrier per batch, and the block stops at a batch
+// boundary once every pixel is done.
+// The TPU kernel evaluated chunks of keys as [256, C] vector blocks, with
+// the transmittance as a log-space triangular matmul scan and the
 // distortion telescoped into chunk sums, because the TPU has no per-pixel
 // scalar threads; here every sum is a plain sequential update per pixel.
 // The TPU stream's 3 padding rows are dropped.
@@ -50,6 +65,26 @@ namespace {
 
 using namespace surfel;
 
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// every thread copies its share of keys [b, b + 256) of the tile into buf
+// and commits them as one cp.async group; then, while they are in flight,
+// thread i evaluates key b + i's warp_mask from device memory
+__device__ __forceinline__ void stage_async(float* buf, unsigned char* mask,
+                                            const float* __restrict__ data, int start, int b,
+                                            int count, int tid, int x0, int y0) {
+  const int n = min(kPix, count - b) * kCols;
+  const float* src = data + ((size_t)start + b) * kCols;
+  for (int i = tid; i < n; i += kPix) copy_async4(buf + i, src + i);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (b + tid < count) mask[tid] = (unsigned char)warp_mask(src + tid * kCols, x0, y0);
+}
+
 template <bool kTrain>
 __global__ void __launch_bounds__(kPix) surfel_composite_kernel(
     const float* __restrict__ data, const int* __restrict__ tile_start,
@@ -60,11 +95,14 @@ __global__ void __launch_bounds__(kPix) surfel_composite_kernel(
     int* __restrict__ out_ncontrib, int* __restrict__ out_nmed,
     float* __restrict__ out_wm, float* __restrict__ out_wm2,
     float* __restrict__ out_tfinal) {
-  __shared__ float s_keys[kPix * kCols];
+  __shared__ float s_keys[2][kPix * kCols];
+  __shared__ unsigned char s_mask[2][kPix];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const float px = (float)((t % tiles_x) * kTile + (tid % kTile));
-  const float py = (float)((t / tiles_x) * kTile + (tid / kTile));
+  const int x0 = (t % tiles_x) * kTile, y0 = (t / tiles_x) * kTile;
+  const float px = (float)(x0 + tid % kTile);
+  const float py = (float)(y0 + tid / kTile);
+  const unsigned warp_bit = 1u << (tid >> 5);
   const int start = tile_start[t];
   const int count = tile_count[t];
 
@@ -73,21 +111,35 @@ __global__ void __launch_bounds__(kPix) surfel_composite_kernel(
   float a_run = 0.0f, d_run = 0.0f, d2_run = 0.0f;
   int last = 0, n_med = 0;
   bool done = false;
-  for (int b = 0; b < count; b += kPix) {
-    // block-uniform exit; also the barrier before s_keys is overwritten
+  if (count > 0) stage_async(s_keys[0], s_mask[0], data, start, 0, count, tid, x0, y0);
+  for (int b = 0, buf = 0; b < count; b += kPix, buf ^= 1) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // one barrier per batch: this thread's copies have landed, everyone's
+    // copies and masks are visible, every warp is done with the other
+    // buffer, and the exit is block-uniform
     if (__syncthreads_count(done) == kPix) break;
+    if (b + kPix < count) {
+      stage_async(s_keys[buf ^ 1], s_mask[buf ^ 1], data, start, b + kPix, count, tid, x0, y0);
+    }
+    const float* keys = s_keys[buf];
+    const unsigned char* mask = s_mask[buf];
     const int n_batch = min(kPix, count - b);
-    const float* src = data + ((size_t)start + b) * kCols;
-    for (int i = tid; i < n_batch * kCols; i += kPix) s_keys[i] = src[i];
-    __syncthreads();
-    for (int j = 0; j < n_batch && !done; ++j) {
-      const float* key = s_keys + j * kCols;
-      const Hit h = hit(key, px, py);
+    for (int j = 0; j < n_batch; ++j) {
+      if (!(mask[j] & warp_bit)) continue;  // warp-uniform
+      const float* key = keys + j * kCols;
+      const Geo g = geo(key, px, py);
+      const bool may = !done && may_hit(key, g);
+      if (!__any_sync(kFull, may)) {  // warp-uniform
+        if (__all_sync(kFull, done)) break;
+        continue;
+      }
+      if (!may) continue;
+      const Hit h = hit(key, g);
       if (h.alpha < kAlphaMin || h.z < kNear) continue;
       const float test_t = trans * (1.0f - h.alpha);
       if (test_t < kTEps) {
         done = true;
-        break;
+        continue;
       }
       const float w = h.alpha * trans;
       c0 += w * key[14];

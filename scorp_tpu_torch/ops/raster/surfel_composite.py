@@ -23,6 +23,8 @@ none), Σw·m, Σw·m² and the final transmittance T.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ._build import check_tensor, load
@@ -42,6 +44,10 @@ from .surfel import (
 REPLACES = "scorp_tpu/ops/raster/pallas_surfel.py:136 _surfel_fwd_kernel"
 REPLACES_TRAIN = "scorp_tpu/ops/raster/pallas_surfel_train.py:131 _surfel_train_fwd_kernel"
 SOURCE = "scorp_tpu_torch/csrc/surfel_composite.cu"
+# surfel_pretest's constants, surfel_common.cuh's kLog2_255, kTwoLn2, kRhoMargin
+PRETEST_LOG2_255 = math.log2(255.0)
+PRETEST_TWO_LN2 = 2.0 * math.log(2.0)
+PRETEST_MARGIN = 1e-3
 
 
 def surfel_hit(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> dict:
@@ -73,6 +79,79 @@ def surfel_hit(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> dict:
     z = torch.where(use3d, u * col(9) + v * col(10) + col(11), col(11))
     return dict(s_z=s_z, sz=sz, u_raw=u_raw, v_raw=v_raw, u=u, v=v, use3d=use3d,
                 dx=dx, dy=dy, alpha_u=alpha_u, alpha=alpha, z=z)
+
+
+def surfel_pretest(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """The kernels' division-free pre-test (`csrc/surfel_common.cuh:
+    may_hit`) of a chunk, [T, C, P] bool: False only where `surfel_hit`'s
+    alpha < 1/255. alpha_u = opacity·e^(−rho/2) reaches 1/255 only if
+    rho <= r = 2·ln2·(lopa + log2 255) (plus a 1e-3 margin), so only if
+    rho2d <= r or sx² + sy² <= r·sz² (a clipped |u| of 1e3 gives
+    rho3d >= 1e6 > r for opacity <= 1). A NaN passes. The kernels run it
+    before `surfel_hit`'s divisions and skip a key for a warp in which no
+    lane passes; the plain versions need no skip, so only the tests and
+    chip_smoke.py's slot counts use this mirror."""
+    x, y = px[:, None, :], py[:, None, :]
+
+    def col(i):
+        return rows[..., i:i + 1]
+
+    sx = col(0) * x + col(1) * y + col(2)
+    sy = col(3) * x + col(4) * y + col(5)
+    s_z = col(6) * x + col(7) * y + col(8)
+    sz = torch.where(s_z.abs() > 1e-9, s_z, 1e-9)
+    dx = col(12) - x
+    dy = col(13) - y
+    rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy)
+    r = (col(20) + PRETEST_LOG2_255) * PRETEST_TWO_LN2 + PRETEST_MARGIN
+    return ~(rho2d > r) | ~(sx * sx + sy * sy > r * (sz * sz))
+
+
+def surfel_warp_mask(rows: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
+    """The kernels' per-warp mask (`csrc/surfel_common.cuh:warp_mask`) of a
+    chunk: rows [T, C, 21] f32 and the tiles' pixel origins x0/y0 [T] ->
+    [T, C, 8] bool, False only where `surfel_pretest` is False at every
+    pixel of the warp's two rows (x0..x0+15, y0+2w and y0+2w+1). The same
+    f32 interval bounds as the CUDA function, op for op; like
+    `surfel_pretest`, only the tests and chip_smoke.py's slot counts use it."""
+    slack = 2.0 ** -18
+    f32 = dict(dtype=torch.float32, device=rows.device)
+
+    def col(i):
+        return rows[..., i, None]                                          # [T, C, 1]
+
+    fx0 = x0.to(**f32)[:, None, None]                                      # [T, 1, 1]
+    xm, xmax = fx0 + 7.5, fx0 + 15.0
+    ymax_tile = y0.to(**f32)[:, None, None] + 15.0
+    s = [col(3 * k).abs() * xmax + col(3 * k + 1).abs() * ymax_tile + col(3 * k + 2).abs()
+         for k in range(3)]
+    cx, cy = col(12), col(13)
+    sane = ((s[0] <= 1e18) & (s[1] <= 1e18) & (s[2] <= 1e18) & (cx.abs() <= 1e18)
+            & (cy.abs() <= 1e18))
+    r = (col(20) + PRETEST_LOG2_255) * PRETEST_TWO_LN2 + PRETEST_MARGIN
+    ddx = torch.clamp_min(torch.maximum(fx0 - cx, cx - xmax), 0.0)
+    ya = (y0[:, None] + 2 * torch.arange(8, device=rows.device)).to(**f32)[:, None, :]
+    ym = ya + 0.5                                                          # [T, 1, 8]
+    lo, hi = [], []
+    for k in range(3):
+        a, b = col(3 * k), col(3 * k + 1)
+        mid = a * xm + b * ym + col(3 * k + 2)
+        half = a.abs() * 7.5 + b.abs() * 0.5 + slack * s[k]
+        lo.append(mid - half)
+        hi.append(mid + half)
+
+    def min_square(lo_, hi_):
+        return torch.where(lo_ > 0, lo_ * lo_, torch.where(hi_ < 0, hi_ * hi_, 0.0))
+
+    lhs = min_square(lo[0], hi[0]) + min_square(lo[1], hi[1])
+    lhs = torch.where(lhs < 1e-30, 0.0, lhs)
+    sz2 = torch.clamp_min(torch.maximum(lo[2] * lo[2], hi[2] * hi[2]), 1e-18)
+    far3 = lhs * (1.0 - slack) > r * sz2 * (1.0 + slack)
+    ddy = torch.clamp_min(torch.maximum(ya - cy, cy - (ya + 1.0)), 0.0)
+    rho2 = FILTER_INV_SQUARE * (ddx * ddx + ddy * ddy)
+    rho2 = torch.where(rho2 < 1e-30, 0.0, rho2)
+    far2 = rho2 * (1.0 - slack) > r
+    return ~(far3 & far2) | ~sane
 
 
 def distortion_m(z: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,9 @@
 version on the same CUDA inputs, at small edge-case shapes (empty tiles,
 tiles of 255/256/257/600 keys, a single gaussian, an overflowing key
 capacity, saturating pixels; for the surfel kernels K4-K6 and K1's second
-ellipse, random surfel scenes with tiles of several key batches). Needs an NVIDIA GPU and nvcc; skipped
+ellipse, random surfel scenes with tiles of several key batches, and
+hand-built surfel streams: one emitting lane per warp, one surfel row in
+every tile, pairs within a few ulps of alpha = 1/255). Needs an NVIDIA GPU and nvcc; skipped
 elsewhere. On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -319,6 +321,145 @@ def test_rasterize_surfel_backward_on_cuda_matches_cpu(dev):
     for a, b in zip(*grads):
         scale = max(float(b.abs().max()), 1e-8)
         torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0)
+
+
+def _disc_rows(rng, cx, cy, a, b, opacity, tilt=1e-3, angle=True):
+    """Stream rows of discs centred at (cx, cy) with half-axes a and b in
+    pixels: u and v are the rotated, scaled offsets from the centre over
+    s_z = 1 + a small tilt, the depth row near z = 1..5."""
+    n = cx.shape[0]
+    th = rng.uniform(0, np.pi, n) if angle else np.zeros(n)
+    c, s = np.cos(th), np.sin(th)
+    rows = np.zeros((n, 21))
+    rows[:, 0:3] = np.stack([c / a, s / a, -(cx * c + cy * s) / a], 1)
+    rows[:, 3:6] = np.stack([-s / b, c / b, (cx * s - cy * c) / b], 1)
+    t1, t2 = rng.normal(0, tilt, n), rng.normal(0, tilt, n)
+    rows[:, 6:9] = np.stack([t1, t2, 1.0 - t1 * cx - t2 * cy], 1)
+    rows[:, 9:11] = rng.normal(0, 0.05, (n, 2))
+    rows[:, 11] = rng.uniform(1, 5, n)
+    rows[:, 12], rows[:, 13] = cx, cy
+    rows[:, 14:17] = rng.uniform(0, 1, (n, 3))
+    rows[:, 17:20] = rng.normal(0, 1, (n, 3))
+    rows[:, 20] = np.log2(opacity)
+    return rows.astype(np.float32)
+
+
+SYNTH_TILES_X, SYNTH_COUNTS = 4, [300, 0, 600, 257, 40, 1, 520, 256, 255, 90, 700, 12]
+
+
+def _synthetic_surfel_stream(kind, device, seed=3):
+    """A hand-built surfel stream over a 4x3-tile image with tiles of 0 to
+    700 keys (several 256-key batches): (data [K, 21], gid [K], tile_start,
+    tile_count, n_rows).
+    - single_lane: pinpoint discs (opacity 0.008) on one pixel each, so in
+      a warp that emits for a key exactly one lane does;
+    - shared_row: one disc covering the whole image in every tile as
+      surfel row 0 (every tile's flush adds into that row), with random
+      discs from 0.3 to 6 pixels (both branches of rho, all 21 gradient
+      columns);
+    - boundary: discs whose alpha lands within a few ulps of 1/255 at some
+      pixels, through rho3d (axis-aligned discs scaled onto the threshold)
+      and through rho2d (tiny discs whose opacity puts the threshold at
+      an integer pixel distance)."""
+    rng = np.random.default_rng(seed)
+    counts = np.array(SYNTH_COUNTS)
+    k = int(counts.sum())
+    tile = np.repeat(np.arange(counts.size), counts)
+    ox = (tile % SYNTH_TILES_X) * 16.0
+    oy = (tile // SYNTH_TILES_X) * 16.0
+    gid = rng.permutation(k)
+    if kind == "single_lane":
+        cx = ox + rng.integers(0, 16, k)
+        cy = oy + rng.integers(0, 16, k)
+        data = _disc_rows(rng, cx, cy, np.full(k, 0.2), np.full(k, 0.2), np.full(k, 0.008))
+    elif kind == "shared_row":
+        cx, cy = ox + rng.uniform(-8, 24, k), oy + rng.uniform(-8, 24, k)
+        a, b = np.exp(rng.uniform(np.log(0.3), np.log(6.0), (2, k)))
+        data = _disc_rows(rng, cx, cy, a, b, rng.uniform(0.05, 0.9, k))
+        big = _disc_rows(rng, np.array([32.0]), np.array([24.0]), np.array([60.0]),
+                         np.array([45.0]), np.array([0.3]))
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        slots = [s + rng.integers(0, c) for s, c in zip(start, counts) if c > 0]
+        data[slots] = big
+        gid = rng.integers(1, k, k)
+        gid[slots] = 0
+    else:
+        lopa = rng.uniform(-7.9, 0.0, k)
+        ulps = 1.0 + rng.integers(-16, 17, k) * 2.0 ** -22
+        cx = ox + rng.integers(0, 16, k)
+        cy = oy + rng.integers(0, 16, k)
+        d2 = rng.choice([1.0, 2.0, 4.0, 5.0, 8.0, 25.0], k)
+        r_thr = 2 * np.log(2) * (lopa + np.log2(255))
+        a = np.sqrt(d2 / r_thr) * ulps                      # rho3d = d2 / a^2 on the threshold
+        data = _disc_rows(rng, cx, cy, a, a, 2.0 ** lopa, tilt=0.0, angle=False)
+        tiny = rng.uniform(size=k) < 0.5                    # rho2d = 2 d2 on the threshold
+        d2t = rng.choice([1.0, 2.0, 4.0, 5.0], k)
+        lopa_t = (2 * d2t / (2 * np.log(2)) - np.log2(255)) * ulps
+        data[tiny] = _disc_rows(rng, cx[tiny], cy[tiny], np.full(k, 0.05)[tiny],
+                                np.full(k, 0.05)[tiny], 2.0 ** lopa_t[tiny])
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    as_t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=device)  # noqa: E731
+    return (as_t(data, torch.float32), as_t(gid, torch.int32), as_t(start, torch.int32),
+            as_t(counts, torch.int32), int(gid.max()) + 1)
+
+
+def _synthetic_slots(data, start, count, n_contrib):
+    """Per (tile, key, warp): how many lanes clear the exact tests below
+    their n_contrib (K6's emitting lanes), and the alpha of every pair."""
+    from scorp_tpu_torch.ops.raster.composite import pixel_coords
+    from scorp_tpu_torch.ops.raster.surfel_composite import surfel_hit
+
+    c = count.long()
+    j = torch.arange(int(c.max()), device=data.device)
+    idx = (start.long()[:, None] + j[None, :]).clamp_max(data.shape[0] - 1)
+    px, py = pixel_coords(c.shape[0], SYNTH_TILES_X, torch.float32, data.device)
+    hit = surfel_hit(data[idx], px, py)
+    emit = ((j[None, :] < c[:, None])[..., None] & (j[None, :, None] < n_contrib.long()[:, None])
+            & (hit["alpha"] >= 1 / 255) & (hit["z"] >= 0.2))
+    return emit.view(c.shape[0], j.shape[0], 8, 32).sum(-1), hit["alpha"][j[None, :] < c[:, None]]
+
+
+@pytest.mark.parametrize("kind", ["single_lane", "shared_row", "boundary"])
+def test_surfel_kernels_on_synthetic_streams(dev, kind):
+    """K4/K5 against their plain versions (and K4 == K5), then K6 against
+    its plain version on K5's residuals, on the hand-built streams."""
+    data, gid, start, count, n_rows = _synthetic_surfel_stream(kind, dev)
+    bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    args = (data, start, count, bg)
+    k4 = surfel_composite(*args, tiles_x=SYNTH_TILES_X)
+    k5 = surfel_composite_train(*args, tiles_x=SYNTH_TILES_X)
+    torch.cuda.synchronize()
+    _check_surfel_forward(k4, surfel_composite_plain(*args, tiles_x=SYNTH_TILES_X), False)
+    _check_surfel_forward(k5, surfel_composite_plain(*args, tiles_x=SYNTH_TILES_X, train=True),
+                          True)
+    for a, b in zip(k4, k5[:6]):
+        assert torch.equal(a, b)
+
+    n_contrib, n_med, wm, wm2, t_final = k5[6:]
+    rng = np.random.default_rng(5)
+    g = [torch.as_tensor(rng.normal(size=(len(SYNTH_COUNTS), c, 256)), dtype=torch.float32,
+                         device=dev) for c in (3, 1, 1, 3, 1, 1)]
+    k6_args = (data, gid, start, count, bg, *g, t_final, n_contrib, n_med, wm, wm2, n_rows)
+    got = surfel_backward(*k6_args, tiles_x=SYNTH_TILES_X)
+    ref = surfel_backward_plain(*k6_args, tiles_x=SYNTH_TILES_X)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    scale = ref.abs().amax(dim=0)
+    assert bool(((got - ref).abs() <= 1e-4 * scale + 1e-12).all())
+
+    lanes, alpha = _synthetic_slots(data, start, count, n_contrib[:, 0])
+    if kind == "single_lane":
+        assert int(lanes.max()) == 1 and int((lanes == 1).sum()) > 1000
+    elif kind == "shared_row":
+        assert float(scale.min()) > 0.0  # all 21 columns
+        # the row every tile flushes into (the big disc never takes the
+        # low-pass branch, whose columns are 12 and 13)
+        assert bool((ref[0, [c for c in range(21) if c not in (12, 13)]] != 0).all())
+    else:
+        ulp = float(np.spacing(np.float32(1 / 255)))
+        near = (alpha - 1 / 255).abs() <= 16 * ulp
+        assert int((near & (alpha >= 1 / 255)).sum()) > 50
+        assert int((near & (alpha < 1 / 255)).sum()) > 50
 
 
 def test_surfel_wrappers_reject_bad_inputs(dev):
