@@ -27,7 +27,12 @@ Phases, in order (any failure exits non-zero):
      busy time per frame from a torch.profiler trace. A kernel's "ms" is its
      device time from a profiler (CUPTI) trace of 20 calls; "ms_per_call"
      is the CUDA-event median of 20 calls, each after a synchronize, which
-     also counts the host's launch work while the device waits.
+     also counts the host's launch work while the device waits. K2 is
+     also held bit-identical to its plain version (every output, n_contrib on
+     100% of pixels) here, in phase 3 and on phase 7's training stream, and
+     its (warp, key) slots on the eval stream are counted (walked, left by
+     the warp mask, with a lane at alpha >= 1/255) with the plain
+     gauss_alpha and gauss_warp_mask on the card.
   5. K3 (the backward compositor) against its plain version at 50k /
      800x600 on the differentiable rasterizer's inputs with cotangents from
      `--seed`: d_table per column within 1e-4 x the column's largest value
@@ -49,7 +54,11 @@ Phases, in order (any failure exits non-zero):
      the L1 + SSIM loss's forward and backward alone at that size; K3
      against its plain version on the step's inputs (the checks of phase
      5), its time beside its plain version and its bound, and K2's time with
-     n_contrib and t_final.
+     n_contrib and t_final; K2's and K3's (warp, key) slots on that stream
+     and K3's global atomics (10 per touched (block, gaussian row) pair)
+     beside the bound's count (10 per walked (warp, key) pair, kept
+     unchanged as K2's 24 ops per pair are, so that shares of the bound
+     stay comparable across kernel versions).
   8. full width, 2DGS eval path: the scene's 250k Gaussians as surfels
      (their first two scales, bench.py:293-300) written as a PLY and
      rendered through `scorp_tpu_torch.apps.render_2dgs.main` on cuda
@@ -326,7 +335,83 @@ def check_composite(got, ref, label: str) -> float:
               f"K2 {label} {name}: max |diff| {mx:.3g} <= 5e-3, mean {mean:.3g} <= 1e-5")
     same = float((got[3] == ref[3]).to(torch.float32).mean())
     check(same >= 0.999, f"K2 {label} n_contrib equal on {100 * same:.4f}% of pixels")
+    names = ["color", "depth", "alpha", "n_contrib", "t_final"]
+    differ = [f"{name} ({int((a != b).sum())} values)" for name, a, b in zip(names, got, ref)
+              if a is not None and not torch.equal(a, b)]
+    check(not differ, f"K2 {label}: every output bit-identical to the plain version, n_contrib "
+          f"equal on every pixel (differing: {', '.join(differ) or 'none'})")
     return err
+
+
+def gauss_slot_counts(data, tile_start, tile_count, n_contrib, tiles_x: int,
+                      chunk: int = 32):
+    """The (warp, key) slots K2 and K3 walk on a stream, counted from the
+    plain `gauss_alpha` and `gauss_warp_mask` on the card, chunked over keys
+    (the kernels count nothing): {kernel: {"walked", "mask", "live"}}: the
+    slots walked, those the warp mask leaves (the warp loads the key), and
+    those in which some active lane has alpha >= 1/255. A K3 lane is active
+    below its n_contrib and its warp walks up to the warp's largest; a K2
+    lane is active up to the key that ends its pixel (the first key at or
+    after n_contrib with alpha >= 1/255) and its warp walks until every lane
+    has ended. K3 also gets "touched": the (tile, key) rows its blocks flush
+    (some warp emits), 10 global atomics each."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster.common import ALPHA_MIN
+    from scorp_tpu_torch.ops.raster.composite import (
+        PIXELS, TILE, gauss_alpha, gauss_warp_mask, pixel_coords,
+    )
+
+    dev = data.device
+    count = tile_count.to(torch.int64)
+    n_tiles = count.shape[0]
+    nc = n_contrib[:, 0].to(torch.int64)                                   # [T, P]
+    px, py = pixel_coords(n_tiles, tiles_x, torch.float32, dev)
+    t = torch.arange(n_tiles, device=dev)
+    x0, y0 = (t % tiles_x) * TILE, (t // tiles_x) * TILE
+    max_count = int(count.max())
+
+    def chunks():
+        for c0 in range(0, max_count, chunk):
+            j = torch.arange(c0, min(c0 + chunk, max_count), device=dev)
+            valid = (j[None, :] < count[:, None])[..., None]                # [T, C, 1]
+            idx = (tile_start.to(torch.int64)[:, None] + j[None, :]).clamp_max(
+                data.shape[0] - 1)
+            rows = data[idx]
+            yield (j, valid & (gauss_alpha(rows, px, py)["alpha"] >= ALPHA_MIN),
+                   gauss_warp_mask(rows, x0, y0))
+
+    with torch.no_grad():
+        end = count[:, None].expand(-1, PIXELS).clone()                     # K2 lane ends
+        found = torch.zeros_like(end, dtype=torch.bool)
+        for j, passes, _ in chunks():
+            cand = passes & (j[None, :, None] >= nc[:, None, :])
+            first = j[0] + cand.to(torch.int32).argmax(dim=1) + 1
+            end = torch.where(cand.any(dim=1) & ~found, first, end)
+            found |= cand.any(dim=1)
+        limits = {"K2": (end, end.view(n_tiles, 8, 32).amax(-1)),
+                  "K3": (nc, torch.minimum(nc.view(n_tiles, 8, 32).amax(-1), count[:, None]))}
+        out = {k: dict(walked=0, mask=0, live=0) for k in limits}
+        out["K3"]["touched"] = 0
+        for j, passes, mask in chunks():
+            for name, (lane_end, warp_end) in limits.items():
+                active = j[None, :, None] < lane_end[:, None, :]                 # [T, C, P]
+                walked = j[None, :, None] < warp_end[:, None, :]                 # [T, C, 8]
+                live = (passes & active).view(n_tiles, -1, 8, 32).any(-1) & walked
+                out[name]["walked"] += int(walked.sum())
+                out[name]["mask"] += int((walked & mask).sum())
+                out[name]["live"] += int(live.sum())
+                if name == "K3":
+                    out[name]["touched"] += int(live.any(-1).sum())
+    return out
+
+
+def print_slots(slots) -> None:
+    for name, s in slots.items():
+        walked = max(s["walked"], 1)
+        print(f"  {name} (warp, key) slots: {s['walked']} walked, {s['mask']} left by the warp "
+              f"mask, {s['live']} with a lane at alpha >= 1/255; dead share "
+              f"{1 - s['live'] / walked:.4f}, skipped by the mask {1 - s['mask'] / walked:.4f}")
 
 
 def check_expand(x, label: str) -> int:
@@ -532,6 +617,7 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     k2_err = check_composite(
         k2_out, composite_plain(*args2, tiles_x=tiles_x, track_ncontrib=True), "full width")
     pairs = int(k2_out[3].to(torch.int64).sum())
+    slots = gauss_slot_counts(bins.data, bins.tile_start, bins.tile_count, k2_out[3], tiles_x)
     n_tiles = bins.tile_start.shape[0]
     streamed = int(bins.tile_count.to(torch.int64).sum())
     k2_bytes = streamed * 40 + n_tiles * 8 + 12 + n_tiles * 256 * 5 * 4
@@ -568,7 +654,9 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
           f"{n} gaussians)")
     print(f"  K2: {k2_ms:.4f} ms ({k2_call_ms:.4f} per call), plain {k2_plain_ms:.3f} ms, bound "
           f"{1e3 * max(k2_bytes_s, k2_ops_s):.4f} ms ({streamed} streamed keys, "
-          f"{pairs} (pixel, key) pairs up to n_contrib, {n_tiles} tiles)")
+          f"{pairs} (pixel, key) pairs up to n_contrib at {K2_FLOPS_PER_PAIR} ops each, the "
+          f"bound's fixed formula, {n_tiles} tiles)")
+    print_slots({"K2": slots["K2"]})
     return {
         "frame_ms": frame_ms,
         "stages": stages,
@@ -576,7 +664,7 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
                    bound_ms=1e3 * k1_bound, bound_by=k1_bound_by, kept=kept, golden=golden,
                    err=k1_err),
         "k2": dict(ms=k2_ms, ms_per_call=k2_call_ms, plain_ms=k2_plain_ms, err=k2_err,
-                   bound_ms=1e3 * max(k2_bytes_s, k2_ops_s),
+                   slots=slots["K2"], bound_ms=1e3 * max(k2_bytes_s, k2_ops_s),
                    bound_by="bytes" if k2_bytes_s >= k2_ops_s else "operations"),
     }
 
@@ -744,7 +832,7 @@ def phase_train_step(args, device):
     from scorp_tpu_torch.ops.losses import l1_loss, ssim
     from scorp_tpu_torch.ops.raster import preprocess
     from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
-    from scorp_tpu_torch.ops.raster.composite import composite
+    from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
     from scorp_tpu_torch.render import tuned_raster_config
     from scorp_tpu_torch.train import OptParams, from_gaussian_data, init_adam, train_step
 
@@ -833,11 +921,14 @@ def phase_train_step(args, device):
         k3_args, tiles_x, route, k2_out = backward_inputs(prep, w, h, cfg, args.seed + 5,
                                                           device)
         k3_err = check_backward(k3_args, tiles_x, "full width")
+        k2_args = (k3_args[0], *k3_args[2:5])  # data, tile_start, tile_count, bg
+        k2_err = check_composite(k2_out, composite_plain(*k2_args, tiles_x=tiles_x,
+                                                         track_ncontrib=True, with_t_final=True),
+                                 "training stream")
         k3_ms = kernel_ms(lambda: composite_backward(*k3_args, tiles_x=tiles_x),
                           "::composite_backward_kernel")
         k3_call_ms = cuda_ms(lambda: composite_backward(*k3_args, tiles_x=tiles_x), 20)
         k3_plain_ms = cuda_ms(lambda: composite_backward_plain(*k3_args, tiles_x=tiles_x), 1)
-        k2_args = (k3_args[0], *k3_args[2:5])  # data, tile_start, tile_count, bg
         k2_train_ms = kernel_ms(lambda: composite(*k2_args, tiles_x=tiles_x, track_ncontrib=True,
                                                   with_t_final=True), "::composite_kernel")
         nc = k2_out[3][:, 0].to(torch.int64)                                # [T, 256]
@@ -846,6 +937,8 @@ def phase_train_step(args, device):
         # (warp, key) pairs a warp walks: up to the warp's largest n_contrib
         warp_keys = int(torch.minimum(nc.view(-1, 8, 32).amax(dim=2), count).sum())
         streamed = int(route.tile_count.to(torch.int64).sum())
+        slots = gauss_slot_counts(k3_args[0], route.tile_start, route.tile_count, k2_out[3],
+                                  tiles_x)
     n_tiles, n_rows = route.tile_start.shape[0], k3_args[-1]
     atomics = 10 * warp_keys
     k3_ops = pairs * K3_FLOPS_PER_PAIR + atomics
@@ -856,11 +949,18 @@ def phase_train_step(args, device):
           f"(pixel, key) pairs up to n_contrib, {atomics} atomic adds at most = "
           f"{100 * atomics / k3_ops:.2f}% of its operations, {n_rows} table rows)")
     print(f"  K2 with n_contrib and t_final (the training forward): {k2_train_ms:.4f} ms")
+    print_slots(slots)
+    touched = slots["K3"]["touched"]
+    print(f"  K3 global atomics: {10 * touched} (10 per touched (block, gaussian row) pair, "
+          f"{touched} pairs) against the bound's {atomics} (10 per walked (warp, key) pair, the "
+          "bound's fixed formula, so that its share stays comparable across versions)")
     return {
         "step_ms": step_ms, "parts": parts, "ops": ops, "busy_ms": busy_ms if top else None,
         "loss_ms": loss_ms, "loss_busy_ms": loss_busy,
         "peak_mib": peak / 2**20, "per_step": per_step, "k2_train_ms": k2_train_ms,
+        "k2_err": k2_err, "k2_slots": slots["K2"],
         "k3": dict(ms=k3_ms, ms_per_call=k3_call_ms, plain_ms=k3_plain_ms, err=k3_err,
+                   slots=slots["K3"], atomics=10 * touched,
                    bound_ms=1e3 * max(k3_bytes_s, k3_ops_s),
                    bound_by="bytes" if k3_bytes_s >= k3_ops_s else "operations"),
     }
@@ -1518,6 +1618,7 @@ def main(argv=None) -> int:
     print(f"[7] train_step at full width: {args.n} gaussians, {args.width}x{args.height}")
     step = phase_train_step(args, device)
     k3_err = max(k3_err, step["k3"]["err"])
+    k2_err = max(k2_err, step["k2_err"])
     torch.cuda.empty_cache()
 
     print(f"[8] 2DGS eval at full width: {args.n} surfels, {args.width}x{args.height}, "
@@ -1554,11 +1655,12 @@ def main(argv=None) -> int:
          "replaces": K2_REPLACES, "launches": train_launches["composite"],
          "launches_eval": launches["composite"],
          "max_abs_err": k2_err, "max_abs_diff": k2_err, **timed(full["k2"]),
-         "ms_train": step["k2_train_ms"], "library_ms": None},
+         "ms_train": step["k2_train_ms"], "library_ms": None,
+         "slots": full["k2"]["slots"], "slots_train": step["k2_slots"]},
         {"name": "K3 composite_backward", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train_launches["backward"],
          "max_abs_err": k3_err, **timed(step["k3"]),
-         "library_ms": None},
+         "library_ms": None, "slots": step["k3"]["slots"], "atomics": step["k3"]["atomics"]},
         {"name": "K4 surfel_composite", "route": "cuda", "source": SK_SOURCE,
          "replaces": K4_REPLACES, "launches": launches2d["surfel_composite"],
          "launches_2dgs_train_evals": train2d_launches["surfel_composite"],

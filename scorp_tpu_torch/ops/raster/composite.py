@@ -14,9 +14,15 @@ excluded and the pixel is done). Outputs per tile: color + T·bg, Σw·z,
 alpha = 1 - T and, when asked, n_contrib = the 1-based stream position
 (from the tile start) of the last included key and t_final = T itself, the
 residual the backward compositor (K3, `backward.py`) walks back from.
+
+`gauss_alpha` and `gauss_warp_mask` mirror the kernels' shared alpha
+expression and per-warp skip (`csrc/gauss_common.cuh`) for the tests and
+chip_smoke.py's slot counts; the plain versions need no skip.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,6 +33,9 @@ REPLACES = "scorp_tpu/ops/raster/pallas_fwd.py:415 _fwd_kernel"
 SOURCE = "scorp_tpu_torch/csrc/composite.cu"
 PIXELS = TILE * TILE
 PLAIN_CHUNK = 32  # keys per vectorized alpha evaluation in composite_plain
+# gauss_warp_mask's constants, gauss_common.cuh's kLog2_255 and kQMargin
+MASK_LOG2_255 = math.log2(255.0)
+MASK_MARGIN = 1e-3
 
 
 def pixel_coords(n_tiles: int, tiles_x: int, dtype, device):
@@ -36,6 +45,61 @@ def pixel_coords(n_tiles: int, tiles_x: int, dtype, device):
     px = ((t % tiles_x)[:, None] * TILE + pix % TILE).to(dtype)
     py = ((t // tiles_x)[:, None] * TILE + pix // TILE).to(dtype)
     return px, py
+
+
+def gauss_alpha(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> dict:
+    """Per (pixel, key) quantities of a chunk: rows [T, C, 10] stream rows,
+    px/py [T, P] pixel coordinates -> [T, C, P] tensors dx, dy, u, v,
+    alpha_u and alpha, by the kernels' expression (`csrc/gauss_common.cuh:
+    alpha_of`) in the kernels' order, so that float32 results agree bit for
+    bit on the same device."""
+    dx = rows[..., 0:1] - px[:, None, :]
+    dy = rows[..., 1:2] - py[:, None, :]
+    u = rows[..., 2:3] * dx + rows[..., 3:4] * dy
+    v = rows[..., 4:5] * dy
+    alpha_u = torch.exp2(-0.5 * (u * u + v * v) + rows[..., 9:10])
+    return dict(dx=dx, dy=dy, u=u, v=v, alpha_u=alpha_u,
+                alpha=torch.clamp_max(alpha_u, ALPHA_MAX))
+
+
+def gauss_warp_mask(rows: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
+    """The kernels' per-warp mask (`csrc/gauss_common.cuh:warp_mask`) of a
+    chunk: rows [T, C, 10] f32 and the tiles' pixel origins x0/y0 [T] ->
+    [T, C, 8] bool, False only where `gauss_alpha`'s alpha < 1/255 at every
+    pixel of the warp's two rows (x0..x0+15, y0+2w and y0+2w+1). u and v are
+    affine in the pixel: each lies within its centre value +- slope times
+    half-extent, widened by 2^-18 of its terms' magnitudes; the lower bound
+    of u² + v² is compared with the radius 2·(lopa + log2 255) + 1e-3 with
+    2^-18 of relative slack. The same f32 operations as the CUDA function,
+    op for op."""
+    slack = 2.0 ** -18
+    f32 = dict(dtype=torch.float32, device=rows.device)
+
+    def col(i):
+        return rows[..., i, None]                                          # [T, C, 1]
+
+    def min_square(lo, hi):
+        return torch.where(lo > 0, lo * lo, torch.where(hi < 0, hi * hi, 0.0))
+
+    lopa = col(9)
+    r = (lopa + MASK_LOG2_255) * 2.0 + MASK_MARGIN
+    a11, a21, a22 = col(2).abs(), col(3).abs(), col(4).abs()
+    dxm = col(0) - (x0.to(**f32)[:, None, None] + 7.5)
+    adx = dxm.abs() + 7.5
+    ya = (y0[:, None] + 2 * torch.arange(8, device=rows.device)).to(**f32)[:, None, :]
+    dym = col(1) - (ya + 0.5)                                              # [T, C, 8]
+    ady = dym.abs() + 0.5
+    su = a11 * adx + a21 * ady
+    sv = a22 * ady
+    um = col(2) * dxm + col(3) * dym
+    hu = a11 * 7.5 + a21 * 0.5 + slack * su
+    vm = col(4) * dym
+    hv = a22 * 0.5 + slack * sv
+    q = min_square(um - hu, um + hu) + min_square(vm - hv, vm + hv)
+    q = torch.where(q < 1e-30, 0.0, q)
+    far = q * (1.0 - slack) > r * (1.0 + slack)
+    sane = (lopa.abs() <= 1e18) & (su <= 1e18) & (sv <= 1e18)
+    return ~far | ~sane
 
 
 def composite_plain(data: torch.Tensor, tile_start: torch.Tensor,
@@ -115,6 +179,8 @@ def composite(data: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Te
     check_tensor(tile_start, "tile_start", torch.int32, (n_tiles,), dev)
     check_tensor(tile_count, "tile_count", torch.int32, (n_tiles,), dev)
     check_tensor(bg, "bg", torch.float32, (3,), dev)
+    if data.data_ptr() % 8:  # K2 copies rows in 8-byte pieces
+        raise ValueError("data must start at an 8-byte aligned address")
     if n_tiles == 0 or tiles_x <= 0 or n_tiles % tiles_x:
         raise ValueError(f"bad tile grid: {n_tiles} tiles, {tiles_x} per row")
 

@@ -4,7 +4,9 @@ tiles of 255/256/257/600 keys, a single gaussian, an overflowing key
 capacity, saturating pixels; for the surfel kernels K4-K6 and K1's second
 ellipse, random surfel scenes with tiles of several key batches, and
 hand-built surfel streams: one emitting lane per warp, one surfel row in
-every tile, pairs within a few ulps of alpha = 1/255). Needs an NVIDIA GPU and nvcc; skipped
+every tile, pairs within a few ulps of alpha = 1/255; for K2 and K3 the
+same kinds of hand-built 3DGS streams, and one whose keys every warp but
+the first skips by the mask). Needs an NVIDIA GPU and nvcc; skipped
 elsewhere. On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -143,6 +145,17 @@ def test_wrappers_reject_bad_inputs(dev):
     x = expand_inputs(prep, w, h, 256, cull=True)
     with pytest.raises(TypeError):
         expand_keys(x._replace(geo=x.geo.double()))
+
+
+def test_composite_rejects_misaligned_rows(dev):
+    """K2 copies stream rows in 8-byte pieces: rows that start 4 bytes into
+    an allocation are refused, not read wrongly."""
+    data, start, count = _stream([5, 0, 3, 0], 2, 1, dev)
+    shifted = torch.empty(data.numel() + 1, device=dev)[1:].view(data.shape)
+    shifted.copy_(data)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        composite(shifted, start, count, torch.zeros(3, device=dev), tiles_x=2)
 
 
 def _backward_inputs(counts, tiles_x, seed, device, n_rows, opaque=False):
@@ -481,3 +494,125 @@ def test_surfel_wrappers_reject_bad_inputs(dev):
         surfel_backward(*args[:12] + [res[6].float()] + args[13:], tiles_x=6)
     with pytest.raises(ValueError):
         surfel_backward(*args[:5] + [g[0][:, :2].contiguous()] + args[6:], tiles_x=6)
+
+
+# --- K2 and K3 on hand-built 3DGS streams ------------------------------------
+
+def _gauss_rows(rng, cx, cy, l11, l21, l22, opacity):
+    """Stream rows [n, 10] of gaussians centred at (cx, cy) with conic
+    Cholesky rows l11, l21, l22 (u = l11 dx + l21 dy, v = l22 dy), random
+    colours and depths sorted front to back."""
+    n = cx.shape[0]
+    rows = np.zeros((n, 10))
+    rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3], rows[:, 4] = cx, cy, l11, l21, l22
+    rows[:, 5:8] = rng.uniform(0, 1, (n, 3))
+    rows[:, 8] = np.sort(rng.uniform(1, 5, n))
+    rows[:, 9] = np.log2(opacity)
+    return rows.astype(np.float32)
+
+
+def _synthetic_gauss_stream(kind, device, seed=3):
+    """A hand-built 3DGS stream over SYNTH_COUNTS' 4x3-tile image (tiles of
+    0 to 700 keys, several 256-key batches): (data [K, 10], gid [K],
+    tile_start, tile_count, n_rows).
+    - single_lane: pinpoint gaussians (opacity 0.008, alpha >= 1/255 only on
+      their centre pixel), so in a warp that emits for a key exactly one
+      lane does;
+    - shared_row: one gaussian covering the whole image as row 0 in every
+      tile (every tile's flush adds into that row), among random ones from
+      0.5 to 8 pixels;
+    - masked: gaussians confined to each tile's first two pixel rows and
+      keys below 1/255 everywhere, so warps 1-7 skip every key by the mask;
+    - threshold: axis-aligned gaussians whose alpha lands within a few ulps
+      of 1/255 at integer pixel offsets."""
+    rng = np.random.default_rng(seed)
+    counts = np.array(SYNTH_COUNTS)
+    k = int(counts.sum())
+    tile = np.repeat(np.arange(counts.size), counts)
+    ox = (tile % SYNTH_TILES_X) * 16.0
+    oy = (tile // SYNTH_TILES_X) * 16.0
+    gid = rng.permutation(k)
+    zeros = np.zeros(k)
+    if kind == "single_lane":
+        cx, cy = ox + rng.integers(0, 16, k), oy + rng.integers(0, 16, k)
+        data = _gauss_rows(rng, cx, cy, zeros + 2.0, zeros, zeros + 2.0, zeros + 0.008)
+    elif kind == "shared_row":
+        cx, cy = ox + rng.uniform(-8, 24, k), oy + rng.uniform(-8, 24, k)
+        l11, l22 = 1.0 / np.exp(rng.uniform(np.log(0.5), np.log(8.0), (2, k)))
+        data = _gauss_rows(rng, cx, cy, l11, rng.normal(0, 0.1, k), l22,
+                           rng.uniform(0.05, 0.9, k))
+        big = _gauss_rows(rng, np.array([32.0]), np.array([24.0]), np.array([0.02]),
+                          np.array([0.001]), np.array([0.02]), np.array([0.3]))
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        slots = [s + rng.integers(0, c) for s, c in zip(start, counts) if c > 0]
+        data[slots] = big
+        gid = rng.integers(1, k, k)
+        gid[slots] = 0
+    elif kind == "masked":
+        cx, cy = ox + rng.uniform(0, 15, k), oy + rng.uniform(0, 1, k)
+        opacity = np.where(rng.uniform(size=k) < 0.2, 0.003, rng.uniform(0.05, 0.9, k))
+        data = _gauss_rows(rng, cx, cy, rng.uniform(0.5, 3.0, k), rng.normal(0, 0.1, k),
+                           zeros + 6.0, opacity)
+    else:
+        lopa = rng.uniform(-7.9, 0.0, k)
+        ulps = 1.0 + rng.integers(-16, 17, k) * 2.0 ** -22
+        d2 = rng.choice([1.0, 2.0, 4.0, 5.0, 8.0, 25.0], k)
+        a = np.sqrt(2 * (lopa + np.log2(255)) / d2) * ulps       # a² d2 on the threshold
+        cx, cy = ox + rng.integers(0, 16, k), oy + rng.integers(0, 16, k)
+        data = _gauss_rows(rng, cx, cy, a, zeros, a, 2.0 ** lopa)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    as_t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=device)  # noqa: E731
+    return (as_t(data, torch.float32), as_t(gid, torch.int32), as_t(start, torch.int32),
+            as_t(counts, torch.int32), int(gid.max()) + 1)
+
+
+@pytest.mark.parametrize("kind", ["single_lane", "shared_row", "masked", "threshold"])
+def test_gauss_kernels_on_synthetic_streams(dev, kind):
+    """K2 bit-identical to its plain version (every output, n_contrib on
+    every pixel), then K3 against its plain version on K2's residuals, per
+    column within 1e-4 of the column's largest value."""
+    from scorp_tpu_torch.ops.raster.composite import gauss_alpha, gauss_warp_mask, pixel_coords
+
+    data, gid, start, count, n_rows = _synthetic_gauss_stream(kind, dev)
+    bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    args = (data, start, count, bg)
+    got = composite(*args, tiles_x=SYNTH_TILES_X, track_ncontrib=True, with_t_final=True)
+    ref = composite_plain(*args, tiles_x=SYNTH_TILES_X, track_ncontrib=True, with_t_final=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+    n_contrib, t_final = got[3], got[4]
+    rng = np.random.default_rng(5)
+    g = [torch.as_tensor(rng.normal(size=(len(SYNTH_COUNTS), c, 256)), dtype=torch.float32,
+                         device=dev) for c in (3, 1, 1)]
+    k3_args = (data, gid, start, count, bg, *g, t_final, n_contrib, n_rows)
+    d_got = composite_backward(*k3_args, tiles_x=SYNTH_TILES_X)
+    d_ref = composite_backward_plain(*k3_args, tiles_x=SYNTH_TILES_X)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(d_got).all())
+    scale = d_ref.abs().amax(dim=0)
+    assert bool(((d_got - d_ref).abs() <= 1e-4 * scale + 1e-12).all())
+
+    # what each stream is built to show, from the plain mirrors
+    c = count.long()
+    j = torch.arange(int(c.max()), device=dev)
+    valid = j[None, :] < c[:, None]
+    rows = data[(start.long()[:, None] + j[None, :]).clamp_max(data.shape[0] - 1)]
+    px, py = pixel_coords(c.shape[0], SYNTH_TILES_X, torch.float32, dev)
+    alpha = gauss_alpha(rows, px, py)["alpha"]
+    lanes = ((alpha >= 1 / 255) & valid[..., None]).view(c.shape[0], -1, 8, 32).sum(-1)
+    if kind == "single_lane":
+        assert int(lanes.max()) == 1 and int((lanes == 1).sum()) > 1000
+    elif kind == "shared_row":
+        assert bool((d_ref[0] != 0).all()) and float(scale.min()) > 0.0
+    elif kind == "masked":
+        t = torch.arange(c.shape[0], device=dev)
+        mask = gauss_warp_mask(rows, (t % SYNTH_TILES_X) * 16, (t // SYNTH_TILES_X) * 16)
+        assert not bool(mask[..., 1:][valid].any()) and bool(mask[..., 0][valid].any())
+        assert int(lanes[..., 0].sum()) > 1000
+    else:
+        ulp = float(np.spacing(np.float32(1 / 255)))
+        near = (alpha[valid] - 1 / 255).abs() <= 16 * ulp
+        assert int((near & (alpha[valid] >= 1 / 255)).sum()) > 50
+        assert int((near & (alpha[valid] < 1 / 255)).sum()) > 50
