@@ -5,8 +5,10 @@
 
 Phases, in order (any failure exits non-zero):
   1. setup: print the card's name and power limit; build every CUDA kernel
-     from `scorp_tpu_torch/csrc/` (one nvcc per source, in parallel) and
-     print each kernel's registers and spills from nvcc's report.
+     from `scorp_tpu_torch/csrc/` (one nvcc per source, in parallel; the
+     key sort `csrc/sort.cu` is CUB's) and print each kernel's registers
+     and spills from nvcc's report (for the sort: its kernel count and
+     largest spill).
   2. full width, eval path: write a COLMAP scene (4 views at 1600x1066, 2
      test views; its points3D.bin holds the centres and colours of a
      250k-Gaussian SH-3 scene drawn from `--seed` with bench.py's room-scale
@@ -14,15 +16,20 @@ Phases, in order (any failure exits non-zero):
      scene's PLY, then render the test views through
      `scorp_tpu_torch.apps.render_3dgs.main` on cuda. Checks the PNGs, zero
      dropped keys, a non-empty frame, and that K1 and K2's launch counters
-     rose during that run.
+     rose during that run (and the key sort's, once per K1).
   3. kernel vs plain version on identical inputs at 50k / 800x600: K1
-     (sorted keys identical without cull; kept counts within 0.01% + 8 with
-     cull); K2 on one stream (color, alpha and depth/alpha within max 5e-3
-     and mean 1e-5; n_contrib equal on >= 99.9% of pixels); a 2k-Gaussian
+     (every key slot and kept identical, without and with the cull, with
+     the keys' own width and with 64-bit keys); K2 on one stream (color,
+     alpha and depth/alpha within max 5e-3 and mean 1e-5; n_contrib equal
+     on >= 99.9% of pixels); a 2k-Gaussian
      render on the GPU against the plain path on the CPU.
   4. at full width, on the eval path's inputs: the same K1 and K2 checks,
-     K1 against the expansion golden (0.8 golden <= kept <= golden + 1000);
-     then times: each kernel beside its plain version and its bound, each
+     K1 against the expansion golden (0.8 golden <= kept <= golden + 1000),
+     the keys-only sort against torch.sort on K1's keys and the route
+     (gid, tile ranges, dropped) against the decode of the same keys
+     widened to int64 and sorted by torch.sort (the route's earlier form);
+     then times, the key sort's beside torch.sort's of the same keys and of
+     the int64 keys: each kernel beside its plain version and its bound, each
      stage of a frame, the ATen ops a frame dispatches, and the device's
      busy time per frame from a torch.profiler trace. A kernel's "ms" is its
      device time from a profiler (CUPTI) trace of 20 calls; "ms_per_call"
@@ -54,7 +61,8 @@ Phases, in order (any failure exits non-zero):
      the L1 + SSIM loss's forward and backward alone at that size; K3
      against its plain version on the step's inputs (the checks of phase
      5), its time beside its plain version and its bound, and K2's time with
-     n_contrib and t_final; K2's and K3's (warp, key) slots on that stream
+     n_contrib and t_final; the sort and route checks of phase 4 on the
+     step's training stream; K2's and K3's (warp, key) slots on that stream
      and K3's global atomics (10 per touched (block, gaussian row) pair)
      beside the bound's count (10 per walked (warp, key) pair, kept
      unchanged as K2's 24 ops per pair are, so that shares of the bound
@@ -65,7 +73,8 @@ Phases, in order (any failure exits non-zero):
      (PNGs, zero dropped keys, a non-black frame, K1's and K4's launch
      counters rose); K1 with its second ellipse and K4 against their plain
      versions at 50k / 800x600 and at full width (every channel within max
-     5e-3 and mean 1e-5); K4 on the uncut stream (every rect key) against
+     5e-3 and mean 1e-5), and the sort and route checks of phase 4 on the
+     full-width stream; K4 on the uncut stream (every rect key) against
      the culled one at 50k, so the union cull drops no contributing key;
      K4's time beside its plain version and its bound, and a whole
      `render2d` frame's time, ATen ops and device busy time.
@@ -81,16 +90,26 @@ Phases, in order (any failure exits non-zero):
      bench.py's 2DGS measurement (Opt2DParams(lambda_dist=100) at iteration
      8000, so the normal and distortion losses are on): its time and parts,
      ATen ops, device busy time, peak memory, and K5 and K6 on its inputs
-     against their plain versions, with times and bounds; and K5's and
+     against their plain versions, with times and bounds, and the sort and
+     route checks of phase 4 on its stream; and K5's and
      K6's (warp, key) slots on that stream (walked, left by the warp mask,
      left to hit() by the pre-test, with a lane past the exact alpha and z
      tests), counted with the plain surfel_hit, surfel_warp_mask and
      surfel_pretest on the card.
+  11. the host synchronisations PyTorch is asked for by one `render()` of
+     the scene and by one `train_step` at phase 7's setting, counted under
+     torch.cuda.set_sync_debug_mode("warn") (`host_sync_counts`, which runs
+     on earlier versions of the port too: import this file by its path with
+     another checkout's root first on sys.path to count theirs).
 The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
 2DGS eval run of phase 8, K5 and K6 with theirs in the 2DGS training run of
-phase 10. The last line is {"ok": true, "device": {...}}.
+phase 10. K1's entry also holds its key width, the key sort's device time
+per call (`sort_ms`; `sort_int64_torch_ms` for torch.sort of the keys as
+int64, the earlier route), torch.sort's on the same keys as `library_ms`,
+and its bound with 8-byte keys beside the bound at the keys' own width.
+The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. Scratch files go to build/smoke/.
@@ -143,6 +162,9 @@ def ptxas_lines(text: str):
             args = re.match(r"I((?:Lb[01]E)+)E", line[i:])
             if args:
                 kernel += "<" + ",".join(re.findall(r"Lb([01])E", args.group(1))) + ">"
+            key = re.match(r"I([jy])E", line[i:])  # K1's key type
+            if key:
+                kernel += {"j": "<u32>", "y": "<u64>"}[key.group(1)]
         elif "registers" in line or "spill" in line:
             yield kernel, line.strip()
 
@@ -415,26 +437,102 @@ def print_slots(slots) -> None:
 
 
 def check_expand(x, label: str) -> int:
-    """K1 kernel against its plain version on the same inputs: identical
-    sorted keys without cull; with cull (and the second ellipse, if x has
-    one), kept counts within 0.01% + 8 (a borderline edge test may round
-    differently). Returns the max |diff| of the sorted keys without cull."""
+    """K1 kernel against its plain version on the same inputs, without the
+    cull and with x's cull (one or two ellipses): every key slot identical
+    and kept equal, with the keys' own width and, where that is 32 bits,
+    with 64-bit keys too. Returns the max |diff| of the keys."""
     import torch
 
     from scorp_tpu_torch.ops.raster.expand import expand_keys, expand_keys_plain
 
-    x0 = x._replace(geo=None, geo2=None)
-    sk = torch.sort(expand_keys(x0)[0]).values
-    sp = torch.sort(expand_keys_plain(x0)[0]).values
-    err = int((sk - sp).abs().max())
-    check(torch.equal(sk, sp), f"K1 {label} cull=False: sorted keys identical to the plain version")
-    keys_k, kept_k = expand_keys(x)
-    keys_p, kept_p = expand_keys_plain(x)
-    kept_k, kept_p = int(kept_k), int(kept_p)
-    n_diff = int((torch.sort(keys_k).values != torch.sort(keys_p).values).sum())
-    check(abs(kept_k - kept_p) <= 1e-4 * kept_p + 8,
-          f"K1 {label} cull=True: kept {kept_k} vs plain {kept_p} ({n_diff} sorted keys differ)")
+    widths = [x.key_dtype] + ([torch.int64] if x.key_dtype == torch.int32 else [])
+    err = 0
+    for xc, cull in ((x._replace(geo=None, geo2=None), "cull=False"), (x, "cull=True")):
+        for dtype in widths:
+            keys_k, kept_k = expand_keys(xc._replace(key_dtype=dtype))
+            keys_p, kept_p = expand_keys_plain(xc._replace(key_dtype=dtype))
+            err = max(err, int((keys_k.long() - keys_p.long()).abs().max()))
+            check(torch.equal(keys_k, keys_p) and int(kept_k) == int(kept_p),
+                  f"K1 {label} {cull}, {str(dtype)[6:]} keys: all {x.k_cap} keys identical to "
+                  f"the plain version, kept {int(kept_k)}")
     return err
+
+
+def check_route(x, route, cfg, label: str) -> None:
+    """The keys-only sort against torch.sort on K1's keys, and the route the
+    path built (gid, tile_start, tile_count, dropped) against the int64
+    form's decode: the same keys widened to int64 and sorted by torch.sort."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster.common import _tile_bounds
+    from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
+
+    keys, kept = expand_keys(x)
+    check(torch.equal(sort_keys(keys, x.end_bit), torch.sort(keys).values),
+          f"sort {label}: keys-only sort of {x.k_cap} {str(x.key_dtype)[6:]} keys over "
+          f"{x.end_bit} bits equals torch.sort")
+    s = torch.sort(keys.to(torch.int64)).values
+    k2 = min(cfg.stream_cap, x.k_cap)
+    start, count = _tile_bounds(s[:k2] >> x.bits_g, x.num_tiles)
+    gid = x.order[s[:k2] & ((1 << x.bits_g) - 1)].to(torch.int32)
+    dropped = torch.clamp_min(x.total - x.k_cap, 0) + torch.clamp_min(kept - k2, 0)
+    check(torch.equal(route.gid, gid) and torch.equal(route.tile_start, start.to(torch.int32))
+          and torch.equal(route.tile_count, count.to(torch.int32))
+          and int(route.num_dropped_keys) == int(dropped),
+          f"route {label}: gid, tile ranges and dropped ({int(dropped)}) equal the int64 "
+          "form's decode")
+
+
+def host_syncs(fn) -> int:
+    """Host synchronisations that one call of fn() asks of PyTorch, counted
+    as the warnings of torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def host_sync_counts(args, device) -> dict:
+    """Host synchronisations of one `render()` of the scene at
+    default_raster_config and of one `train_step` at phase 7's setting,
+    through APIs that earlier versions of the port have too, so that the
+    same count can be taken of a parent's package (put first on sys.path)."""
+    import torch
+
+    from scorp_tpu_torch.core.plyio import GaussianData
+    from scorp_tpu_torch.render import default_raster_config, render, tuned_raster_config
+    from scorp_tpu_torch.train import OptParams, from_gaussian_data, init_adam, train_step
+
+    w, h = args.width, args.height
+    xyz, shs, scales, quats, opacity = bench_scene_arrays(args.n, args.seed)
+    g = GaussianData(xyz=xyz, f_dc=shs[:, :1], f_rest=shs[:, 1:],
+                     opacity=np.log(opacity / (1.0 - opacity))[:, None].astype(np.float32),
+                     scaling=np.log(scales), rotation=quats)
+    state = from_gaussian_data(g, device=device)
+    cam = device_camera(w, h, device)
+    bg = torch.zeros(3, device=device)
+    out = {"render": host_syncs(lambda: render(cam, state, bg,
+                                               cfg=default_raster_config(state.capacity)))}
+    adam = init_adam(state)
+    gt = torch.as_tensor(np.random.default_rng(args.seed).uniform(0, 1, (3, h, w)),
+                         dtype=torch.float32, device=device)
+    zeros = torch.zeros(1, h, w, device=device)
+    cfg = tuned_raster_config(args.n, max_keys=(1 << 20) + (1 << 19) + (1 << 18),
+                              stream_keys=(1 << 20) + (1 << 19))
+    out["train_step"] = host_syncs(lambda: train_step(
+        state, adam, cam, gt, zeros, zeros, 1000, bg, opt=OptParams(), sh_degree=3, cfg=cfg))
+    return out
 
 
 def device_camera(width: int, height: int, device):
@@ -462,6 +560,7 @@ def phase_full_width(args, device):
     from scorp_tpu_torch.apps import render_3dgs
     from scorp_tpu_torch.ops.raster.composite import composite
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
 
     scene_dir = os.path.join(WORK, "scene")
     model_dir = os.path.join(WORK, "model")
@@ -471,14 +570,14 @@ def phase_full_width(args, device):
 
     argv = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml",
             "--not_render_baseline", "--device", str(device)]
-    expand_keys.launches = 0
-    composite.launches = 0
+    expand_keys.launches = sort_keys.launches = composite.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = render_3dgs.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"expand": expand_keys.launches, "composite": composite.launches}
+    launches = {"expand": expand_keys.launches, "sort": sort_keys.launches,
+                "composite": composite.launches}
     peak = torch.cuda.max_memory_allocated()
 
     records = results[os.path.join(model_dir, "rendered_refined")]
@@ -501,6 +600,7 @@ def phase_full_width(args, device):
         check(covered > 0.01, f"{r['image']}: {covered:.3f} of pixels covered")
     check(launches["expand"] > 0 and launches["composite"] > 0,
           "both kernels launched on the main path")
+    check(launches["sort"] == launches["expand"], "the keys-only sort ran once per expansion")
     return scene_dir, model_dir, launches, peak
 
 
@@ -556,12 +656,13 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
 
     from scorp_tpu_torch.core.plyio import load_gaussian_ply
     from scorp_tpu_torch.ops.raster.common import (
-        _expand_keys_core, _tile_bounds, bin_stream, grid_dims, stream_table,
+        _expand_keys_core, _tile_bounds, bin_stream, grid_dims, route_stream, stream_table,
     )
     from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
     from scorp_tpu_torch.ops.raster.expand import (
         expand_inputs, expand_keys, expand_keys_plain,
     )
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
     from scorp_tpu_torch.render import default_raster_config, render
     from scorp_tpu_torch.scene import Scene
     from scorp_tpu_torch.config import ModelParams
@@ -594,6 +695,7 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     n = prep.xy.shape[0]
     x = expand_inputs(prep, w, h, cfg.max_keys, cull=True)
     k1_err = check_expand(x, "full width")
+    check_route(x, route_stream(prep, w, h, cfg), cfg, "full-width eval stream")
     kept = int(expand_keys(x)[1])
     golden = int(_expand_keys_core(prep, w, h, cfg.max_keys, cull=True)[7])
     check(0.8 * golden <= kept <= golden + 1000,
@@ -603,9 +705,28 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     k1_ms = kernel_ms(lambda: expand_keys(x), "::expand_keys_kernel")
     k1_call_ms = cuda_ms(lambda: expand_keys(x), 20)
     k1_plain_ms = cuda_ms(lambda: expand_keys_plain(x), 5)
-    k1_bytes = cfg.max_keys * 8 + n * (4 + 16 + 24) + 8
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, in_range * K1_FLOPS_PER_KEY / F32_FLOPS_PER_S)
-    k1_bound_by = "bytes" if k1_bytes / HBM_BYTES_PER_S >= in_range * K1_FLOPS_PER_KEY / F32_FLOPS_PER_S else "operations"
+    # bytes: each key slot written once at the keys' width, and per gaussian
+    # its start, rect and ellipse read once; the formula of the 64-bit
+    # keys (8 B per slot) is printed beside it
+    key_bytes = 4 if x.key_dtype == torch.int32 else 8
+    k1_bytes = cfg.max_keys * key_bytes + n * (4 + 16 + 24) + 8
+    k1_bytes_int64 = cfg.max_keys * 8 + n * (4 + 16 + 24) + 8
+    k1_ops_s = in_range * K1_FLOPS_PER_KEY / F32_FLOPS_PER_S
+    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops_s)
+    k1_bound_int64 = max(k1_bytes_int64 / HBM_BYTES_PER_S, k1_ops_s)
+    k1_bound_by = "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops_s else "operations"
+    # the key sort: the keys-only sort, torch.sort of the same keys (its
+    # yardstick) and torch.sort of the 64-bit keys the port sorted before;
+    # device time of every kernel of the call, and of its radix-sort kernels
+    keys = expand_keys(x)[0]
+    keys64 = keys.to(torch.int64)
+    sorts = {
+        "keys-only sort": lambda: sort_keys(keys, x.end_bit),
+        "torch.sort": lambda: torch.sort(keys),
+        "torch.sort int64": lambda: torch.sort(keys64),
+    }
+    sort_ms = {name: kernel_ms(fn, "") for name, fn in sorts.items()}
+    sort_radix_ms = {name: kernel_ms(fn, "RadixSort") for name, fn in sorts.items()}
 
     bins = bin_stream(prep, w, h, cfg)
     tiles_x = grid_dims(w, h)[0]
@@ -624,15 +745,16 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     k2_bytes_s = k2_bytes / HBM_BYTES_PER_S
     k2_ops_s = pairs * K2_FLOPS_PER_PAIR / F32_FLOPS_PER_S
     # where a frame's time goes: each stage of render() alone, same inputs
-    keys = expand_keys(x)[0]
-    s_keys = torch.sort(keys).values
+    s_keys = sort_keys(keys, x.end_bit)
     g_sorted = s_keys & ((1 << x.bits_g) - 1)
     stages = {
         "preprocess": cuda_ms(prep_fn, 5),
         "depth argsort + prefix sums": cuda_ms(
             lambda: expand_inputs(prep, w, h, cfg.max_keys, cull=True), 5),
         "K1 expand_keys": k1_call_ms,
-        "sort keys": cuda_ms(lambda: torch.sort(keys), 5),
+        "sort keys (keys-only sort)": cuda_ms(sorts["keys-only sort"], 5),
+        "sort keys (torch.sort, not called)": cuda_ms(sorts["torch.sort"], 5),
+        "sort keys (torch.sort int64, not called)": cuda_ms(sorts["torch.sort int64"], 5),
         "stream gather": cuda_ms(
             lambda: stream_table(prep)[x.order][g_sorted[:cfg.stream_cap]].contiguous(), 5),
         "tile bounds": cuda_ms(lambda: _tile_bounds(s_keys >> x.bits_g, x.num_tiles), 5),
@@ -650,8 +772,11 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     else:
         print("  device busy per frame: not measured (the trace held no CUDA events)")
     print(f"  K1: {k1_ms:.4f} ms ({k1_call_ms:.4f} per call), plain {k1_plain_ms:.3f} ms, bound "
-          f"{1e3 * k1_bound:.4f} ms ({x.k_cap} key slots, {in_range} in range, {kept} kept, "
-          f"{n} gaussians)")
+          f"{1e3 * k1_bound:.4f} ms ({x.k_cap} {8 * key_bytes}-bit key slots, {in_range} in "
+          f"range, {kept} kept, {n} gaussians; with 64-bit keys the bound would be "
+          f"{1e3 * k1_bound_int64:.4f} ms)")
+    print(f"  key sort ({x.end_bit} bits), device ms per call, all kernels / radix-sort kernels: "
+          + ", ".join(f"{k} {sort_ms[k]:.4f} / {sort_radix_ms[k]:.4f}" for k in sorts))
     print(f"  K2: {k2_ms:.4f} ms ({k2_call_ms:.4f} per call), plain {k2_plain_ms:.3f} ms, bound "
           f"{1e3 * max(k2_bytes_s, k2_ops_s):.4f} ms ({streamed} streamed keys, "
           f"{pairs} (pixel, key) pairs up to n_contrib at {K2_FLOPS_PER_PAIR} ops each, the "
@@ -662,7 +787,12 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
         "stages": stages,
         "k1": dict(ms=k1_ms, ms_per_call=k1_call_ms, plain_ms=k1_plain_ms,
                    bound_ms=1e3 * k1_bound, bound_by=k1_bound_by, kept=kept, golden=golden,
-                   err=k1_err),
+                   err=k1_err, bound_ms_int64_keys=1e3 * k1_bound_int64,
+                   key_bits=8 * key_bytes, end_bit=x.end_bit,
+                   sort_ms=sort_ms["keys-only sort"],
+                   sort_radix_ms=sort_radix_ms["keys-only sort"],
+                   library_ms=sort_ms["torch.sort"],
+                   sort_int64_torch_ms=sort_ms["torch.sort int64"]),
         "k2": dict(ms=k2_ms, ms_per_call=k2_call_ms, plain_ms=k2_plain_ms, err=k2_err,
                    slots=slots["K2"], bound_ms=1e3 * max(k2_bytes_s, k2_ops_s),
                    bound_by="bytes" if k2_bytes_s >= k2_ops_s else "operations"),
@@ -771,6 +901,7 @@ def phase_train_app(args, device, scene_dir):
     from scorp_tpu_torch.ops.raster.backward import composite_backward
     from scorp_tpu_torch.ops.raster.composite import composite
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
 
     model_dir = os.path.join(WORK, "train_model")
     iters = args.train_iters
@@ -782,14 +913,15 @@ def phase_train_app(args, device, scene_dir):
             "--densification_interval", "10", "--densify_until_iter", str(iters),
             "--test_iterations", "1", str(iters), "--save_iterations", str(iters),
             "--opacity_cull", "0.005", "--device", str(device)]
-    expand_keys.launches = composite.launches = composite_backward.launches = 0
+    expand_keys.launches = sort_keys.launches = 0
+    composite.launches = composite_backward.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, state, adam, log = train_3dgs.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"expand": expand_keys.launches, "composite": composite.launches,
-                "backward": composite_backward.launches}
+    launches = {"expand": expand_keys.launches, "sort": sort_keys.launches,
+                "composite": composite.launches, "backward": composite_backward.launches}
     peak = torch.cuda.max_memory_allocated()
     losses = log["loss"]
     n_alive = int(state.num_alive())
@@ -802,6 +934,7 @@ def phase_train_app(args, device, scene_dir):
     check(launches["expand"] > 0 and launches["composite"] > 0 and launches["backward"] > 0,
           "K1, K2 and K3 launched on the training path")
     check(launches["backward"] >= iters, f"K3 launched once per step ({launches['backward']})")
+    check(launches["sort"] == launches["expand"], "the keys-only sort ran once per expansion")
     check(len(losses) == iters and all(np.isfinite(losses)), "every step's loss is finite")
     for it, res in log["eval"]:
         print(f"  eval after iteration {it}: " + ", ".join(
@@ -833,6 +966,7 @@ def phase_train_step(args, device):
     from scorp_tpu_torch.ops.raster import preprocess
     from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
     from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
+    from scorp_tpu_torch.ops.raster.expand import expand_inputs
     from scorp_tpu_torch.render import tuned_raster_config
     from scorp_tpu_torch.train import OptParams, from_gaussian_data, init_adam, train_step
 
@@ -920,6 +1054,8 @@ def phase_train_step(args, device):
                           alive=state.alive)
         k3_args, tiles_x, route, k2_out = backward_inputs(prep, w, h, cfg, args.seed + 5,
                                                           device)
+        x = expand_inputs(prep, w, h, cfg.max_keys, cull=True)
+        check_route(x, route, cfg, "full-width training stream")
         k3_err = check_backward(k3_args, tiles_x, "full width")
         k2_args = (k3_args[0], *k3_args[2:5])  # data, tile_start, tile_count, bg
         k2_err = check_composite(k2_out, composite_plain(*k2_args, tiles_x=tiles_x,
@@ -958,6 +1094,7 @@ def phase_train_step(args, device):
         "step_ms": step_ms, "parts": parts, "ops": ops, "busy_ms": busy_ms if top else None,
         "loss_ms": loss_ms, "loss_busy_ms": loss_busy,
         "peak_mib": peak / 2**20, "per_step": per_step, "k2_train_ms": k2_train_ms,
+        "key_bits": 32 if x.key_dtype == torch.int32 else 64,
         "k2_err": k2_err, "k2_slots": slots["K2"],
         "k3": dict(ms=k3_ms, ms_per_call=k3_call_ms, plain_ms=k3_plain_ms, err=k3_err,
                    slots=slots["K3"], atomics=10 * touched,
@@ -1210,6 +1347,7 @@ def phase_surfel_eval(args, device, scene_dir):
     from scorp_tpu_torch.ops.raster import RasterConfig, grid_dims, surfel_prep_to_common
     from scorp_tpu_torch.ops.raster.common import _tile_bounds, sorted_expansion
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
     from scorp_tpu_torch.ops.raster.surfel_composite import (
         surfel_composite, surfel_composite_plain, surfel_composite_train,
     )
@@ -1222,12 +1360,13 @@ def phase_surfel_eval(args, device, scene_dir):
     save_gaussian_ply(os.path.join(model_dir, "refined_aligned", "refined_1000.ply"), g)
     argv = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml",
             "--not_render_baseline", "--device", str(device)]
-    expand_keys.launches = surfel_composite.launches = 0
+    expand_keys.launches = sort_keys.launches = surfel_composite.launches = 0
     t0 = time.perf_counter()
     results = render_2dgs.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"expand": expand_keys.launches, "surfel_composite": surfel_composite.launches}
+    launches = {"expand": expand_keys.launches, "sort": sort_keys.launches,
+                "surfel_composite": surfel_composite.launches}
     records = results[os.path.join(model_dir, "rendered_refined")]
     for r in records:
         print(f"  view {r['image']}: {1e3 * r['seconds']:.3f} ms (render2d + copy to host), "
@@ -1246,6 +1385,7 @@ def phase_surfel_eval(args, device, scene_dir):
               "of pixels covered)")
     check(launches["expand"] > 0 and launches["surfel_composite"] > 0,
           "K1 and K4 launched on the 2DGS eval path")
+    check(launches["sort"] == launches["expand"], "the keys-only sort ran once per expansion")
 
     bg = torch.tensor([0.2, 0.3, 0.4], device=device)
     # 50k / 800x600: K1 with both ellipses and K4 against their plain versions
@@ -1281,6 +1421,7 @@ def phase_surfel_eval(args, device, scene_dir):
     cam = device_camera(w, h, device)
     _, x, route, _, data = surfel_stream_of_state(state, cam, w, h, cfg)
     k1_err = max(k1_err, check_expand(x, "surfel full width"))
+    check_route(x, route, cfg, "full-width 2DGS eval stream")
     tiles_x = grid_dims(w, h)[0]
     a4 = (data, route.tile_start, route.tile_count, bg)
     k4_err = max(k4_err, check_surfel_forward(
@@ -1373,6 +1514,7 @@ def phase_surfel_train_app(args, device, scene_dir):
     from scorp_tpu_torch.apps import train_2dgs
     from scorp_tpu_torch.core.plyio import load_gaussian_ply
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
     from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward
     from scorp_tpu_torch.ops.raster.surfel_composite import (
         surfel_composite, surfel_composite_train,
@@ -1387,14 +1529,15 @@ def phase_surfel_train_app(args, device, scene_dir):
             "--densification_interval", "10", "--densify_until_iter", str(iters),
             "--test_iterations", "1", str(iters), "--save_iterations", str(iters),
             "--opacity_cull", "0.005", "--device", str(device)]
-    expand_keys.launches = surfel_composite.launches = 0
+    expand_keys.launches = sort_keys.launches = surfel_composite.launches = 0
     surfel_composite_train.launches = surfel_backward.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, state, adam, log = train_2dgs.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"expand": expand_keys.launches, "surfel_composite": surfel_composite.launches,
+    launches = {"expand": expand_keys.launches, "sort": sort_keys.launches,
+                "surfel_composite": surfel_composite.launches,
                 "surfel_composite_train": surfel_composite_train.launches,
                 "surfel_backward": surfel_backward.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -1409,6 +1552,7 @@ def phase_surfel_train_app(args, device, scene_dir):
     check(launches["expand"] > 0 and launches["surfel_composite_train"] >= iters
           and launches["surfel_backward"] >= iters and launches["surfel_composite"] > 0,
           "K1, K5 and K6 launched once per step, K4 in the evaluations")
+    check(launches["sort"] == launches["expand"], "the keys-only sort ran once per expansion")
     check(len(losses) == iters and all(np.isfinite(losses)), "every step's loss is finite")
     for it, res in log["eval"]:
         print(f"  eval after iteration {it}: " + ", ".join(
@@ -1502,7 +1646,8 @@ def phase_surfel_train_step(args, device):
         print("  device busy per step: not measured (the trace held no CUDA events)")
 
     # K5 and K6 on the step's own inputs (the routing of its forward)
-    _, _, route, table, data = surfel_stream_of_state(state, cam, w, h, cfg)
+    _, x, route, table, data = surfel_stream_of_state(state, cam, w, h, cfg)
+    check_route(x, route, cfg, "full-width 2DGS training stream")
     tiles_x = grid_dims(w, h)[0]
     k6_args, k5 = surfel_backward_inputs(route, table, data, tiles_x, args.seed + 5, device)
     a5 = (k6_args[0], *k6_args[2:5])  # data, tile_start, tile_count, bg
@@ -1588,7 +1733,13 @@ def main(argv=None) -> int:
     print(f"  built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name in _build.SIGNATURES:  # nvcc's report, kept beside each library
         text = _build.library_path(name).with_suffix(".log").read_text()
-        for kernel, line in ptxas_lines(text):
+        lines = list(ptxas_lines(text))
+        if name == "sort":  # CUB's kernels: their count and the worst spill
+            spills = [int(m) for _, line in lines for m in re.findall(r"(\d+) bytes spill", line)]
+            print(f"  sort: {sum('registers' in line for _, line in lines)} CUB kernels, "
+                  f"largest spill {max(spills, default=0)} bytes")
+            continue
+        for kernel, line in lines:
             print(f"  {name}: {kernel}: {line}")
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -1640,6 +1791,14 @@ def main(argv=None) -> int:
     k5_err = max(k5_err, step2d["k5"]["err"])
     k6_err = tuple(max(a, b) for a, b in zip(k6_err, step2d["k6"]["err"]))
     shutil.rmtree(WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    print("[11] host synchronisations of one render() and one train_step "
+          "(torch.cuda.set_sync_debug_mode)")
+    check(host_syncs(lambda: int(torch.ones(1, device=device).sum())) >= 1,
+          "the count sees the synchronisation of one int() of a CUDA tensor")
+    syncs = host_sync_counts(args, device)
+    print(f"  host synchronisations: {json.dumps(syncs)}")
 
     def timed(d):
         return {k: d[k] for k in ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by")}
@@ -1650,7 +1809,14 @@ def main(argv=None) -> int:
          "launches_eval": launches["expand"], "launches_2dgs": train2d_launches["expand"],
          "launches_2dgs_eval": launches2d["expand"],
          "max_abs_err": k1_err, "max_abs_diff": k1_err, **timed(full["k1"]),
-         "library_ms": None, "kept": full["k1"]["kept"], "kept_golden": full["k1"]["golden"]},
+         "library_ms": full["k1"]["library_ms"], "library_call": "torch.sort of the keys",
+         "sort_launches": train_launches["sort"],
+         "key_bits": full["k1"]["key_bits"], "key_bits_train_step": step["key_bits"],
+         "end_bit": full["k1"]["end_bit"], "sort_ms": full["k1"]["sort_ms"],
+         "sort_radix_ms": full["k1"]["sort_radix_ms"],
+         "sort_int64_torch_ms": full["k1"]["sort_int64_torch_ms"],
+         "bound_ms_int64_keys": full["k1"]["bound_ms_int64_keys"],
+         "kept": full["k1"]["kept"], "kept_golden": full["k1"]["golden"]},
         {"name": "K2 composite", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train_launches["composite"],
          "launches_eval": launches["composite"],

@@ -1,7 +1,8 @@
 """Tile-based Gaussian rasterizer, differentiable.
 
-`rasterize` runs preprocess -> key expansion (K1) + int64 sort -> stream
-gather -> forward compositor (K2). It dispatches on the tensors' device:
+`rasterize` runs preprocess -> key expansion (K1) + a keys-only radix sort
+of its packed int32 keys (int64 past 2^31, `sort.py`) -> stream gather ->
+forward compositor (K2). It dispatches on the tensors' device:
 the kernel wrappers launch the CUDA kernels for CUDA tensors and run their
 plain PyTorch versions for CPU tensors.
 

@@ -35,9 +35,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # C entry points of each source and their argument kinds: p = pointer or
-# stream, i = int
+# stream, i = int, z = size_t
 SIGNATURES = {
-    "expand": {"scorp_expand_keys": "pppppiiiiippp"},
+    "expand": {"scorp_expand_keys": "pppppiiiiiippp"},
+    "sort": {"scorp_sort_keys_temp_bytes": "iiip", "scorp_sort_keys": "pppziiip"},
     "composite": {"scorp_composite": "ppppiipppppp"},
     "backward": {"scorp_composite_backward": "pppppppppppiip"},
     "surfel_composite": {
@@ -47,6 +48,7 @@ SIGNATURES = {
     "surfel_backward": {"scorp_surfel_backward": "p" * 17 + "iip"},
 }
 
+_ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "z": ctypes.c_size_t}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -106,7 +108,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         for fn_name, kinds in SIGNATURES[name].items():
             fn = getattr(lib, fn_name)
-            fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
+            fn.argtypes = [_ARG_TYPES[k] for k in kinds]
             fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

@@ -14,8 +14,9 @@ binning — instead of atomic key duplication + per-key radix sort:
      sum `starts` of the rect tile counts, and its tile inside the rect
      (kernel K1, `expand.py`), culling keys whose tile the alpha>=1/255
      ellipse misses;
-  3. one int64 sort of the packed (tile << bits_g) | depth_rank keys keeps
-     depth order within each tile;
+  3. one keys-only sort of the packed (tile << bits_g) | depth_rank keys
+     (`sort.py`; int32 keys where they fit, as the JAX package packs them,
+     else int64) keeps depth order within each tile;
   4. per-tile ranges come from a searchsorted over the sorted tile ids.
 
 The stream form (per-key rows [K, 10] + per-tile start/count) feeds the
@@ -449,10 +450,18 @@ def _expand_keys_core(
 
 
 def pack_bits(n: int) -> int:
-    """Bits of the depth rank in the packed int64 sort key
+    """Bits of the depth rank in the packed sort key
     (tile << bits) | depth_rank: depth ranks are unique, so one unstable sort
-    keeps depth order within each tile, and int64 fits every N."""
+    keeps depth order within each tile."""
     return max(1, int(n - 1).bit_length())
+
+
+def key_dtype(n: int, num_tiles: int) -> torch.dtype:
+    """Width of the packed sort key, chosen from the shapes as the JAX
+    package chooses it (`pallas_expand.packable`): int32 when
+    (num_tiles + 1) << bits_g fits in a positive int32, else int64 (which
+    fits every N)."""
+    return torch.int32 if (num_tiles + 1) << pack_bits(n) <= (1 << 31) - 1 else torch.int64
 
 
 def _tile_bounds(sorted_tile: torch.Tensor, num_tiles: int):
@@ -469,15 +478,17 @@ def sorted_expansion(prep: Preprocessed, width: int, height: int, k_cap: int,
                      cull: bool = True, geo: torch.Tensor | None = None,
                      geo2: torch.Tensor | None = None):
     """Expansion (kernel K1 on CUDA tensors, its plain version on CPU) +
-    one int64 sort -> (sorted_tile [K], g_sorted [K], order, total, kept).
-    Culled and out-of-range keys carry the sentinel tile `num_tiles` and
-    sort past every live key. `geo`/`geo2` are the cull ellipses (default:
-    the 3DGS ellipse alone)."""
+    one keys-only sort over the bits the keys use -> (sorted_tile [K],
+    g_sorted [K], order, total, kept), in the keys' dtype (int32 or int64,
+    `key_dtype`). Culled and out-of-range keys carry the sentinel tile
+    `num_tiles` and sort past every live key. `geo`/`geo2` are the cull
+    ellipses (default: the 3DGS ellipse alone)."""
     from .expand import expand_inputs, expand_keys
+    from .sort import sort_keys
 
     x = expand_inputs(prep, width, height, k_cap, cull, geo, geo2)
     keys, kept = expand_keys(x)
-    s = torch.sort(keys).values
+    s = sort_keys(keys, x.end_bit)
     return s >> x.bits_g, s & ((1 << x.bits_g) - 1), x.order, x.total, kept
 
 

@@ -12,9 +12,14 @@ gaussian g (the last with starts[g] <= k), its tile inside g's rect, runs
 the f32 alpha>=1/255 ellipse-vs-tile test on g's cull geometry
 (cx, cy, A, B, C, t2) and, when there is one, on its second ellipse `geo2`
 (a key is kept iff either admits its tile: the surfel path's UV-disc conic
-and low-pass circle), and writes the int64 sort key (tile << bits_g) | g,
+and low-pass circle), and writes the packed sort key (tile << bits_g) | g,
 or the sentinel num_tiles << bits_g for culled keys and keys at or past
-min(total, k_cap). `kept` counts the live keys.
+min(total, k_cap). `kept` counts the live keys. The key is int32 where it
+fits, as the JAX package packs it (`common.key_dtype`), else int64.
+
+The kernel finds each slot's gaussian by a search per block of
+`BLOCK_SLOTS` slots (`csrc/expand.cu`); `warp_search_plain` and
+`block_search_plain` mirror that search in PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -31,12 +36,14 @@ from .common import (
     depth_order,
     edge_min_q,
     grid_dims,
+    key_dtype,
     key_routing,
     pack_bits,
 )
 
 REPLACES = "scorp_tpu/ops/raster/pallas_expand.py:80 _expand_kernel"
 SOURCE = "scorp_tpu_torch/csrc/expand.cu"
+BLOCK_SLOTS = 1024  # key slots per block of the kernel (csrc/expand.cu: kBlockSlots)
 
 
 class ExpandInputs(NamedTuple):
@@ -49,6 +56,8 @@ class ExpandInputs(NamedTuple):
     tiles_x: int
     num_tiles: int
     bits_g: int
+    key_dtype: torch.dtype      # torch.int32 or torch.int64 (common.key_dtype)
+    end_bit: int                # bit length of the sentinel: the sort's bits
     order: torch.Tensor         # [N] depth order (not read by the kernel)
     total: torch.Tensor         # [] int64 keys before capacity (not read by the kernel)
 
@@ -64,6 +73,8 @@ def expand_inputs(prep: Preprocessed, width: int, height: int, k_cap: int,
     if n == 0:
         raise ValueError("key expansion needs at least one gaussian")
     tiles_x, tiles_y = grid_dims(width, height)
+    num_tiles = tiles_x * tiles_y
+    bits_g = pack_bits(n)
     order = depth_order(prep)
     rect = prep.rect[order].contiguous()
     _, _, _, _, starts, total = key_routing(rect)
@@ -80,8 +91,10 @@ def expand_inputs(prep: Preprocessed, width: int, height: int, k_cap: int,
         geo2=geo2,
         k_cap=k_cap,
         tiles_x=tiles_x,
-        num_tiles=tiles_x * tiles_y,
-        bits_g=pack_bits(n),
+        num_tiles=num_tiles,
+        bits_g=bits_g,
+        key_dtype=key_dtype(n, num_tiles),
+        end_bit=(num_tiles << bits_g).bit_length(),
         order=order,
         total=total,
     )
@@ -107,7 +120,8 @@ def _keep_plain(geo, g, tx, ty):
 
 
 def expand_keys_plain(x: ExpandInputs):
-    """Plain PyTorch version of the kernel: (keys [k_cap] int64, kept [1] int32)."""
+    """Plain PyTorch version of the kernel: (keys [k_cap] of x.key_dtype,
+    kept [1] int32)."""
     dev = x.starts.device
     n = x.starts.shape[0]
     ks = torch.arange(x.k_cap, dtype=torch.int32, device=dev)
@@ -130,13 +144,58 @@ def expand_keys_plain(x: ExpandInputs):
         (tile << x.bits_g) | g.to(torch.int64),
         torch.full_like(tile, x.num_tiles << x.bits_g),
     )
-    return keys, live.sum(dtype=torch.int32).reshape(1)
+    return keys.to(x.key_dtype), live.sum(dtype=torch.int32).reshape(1)
+
+
+def warp_search_plain(starts: torch.Tensor, k: int) -> int:
+    """The kernel's 32-way search (`csrc/expand.cu:warp_search`): the last g
+    with starts[g] <= k, one probe per lane and round (tests only)."""
+    lo, hi = 0, starts.shape[0] - 1
+    lanes = torch.arange(1, 33, dtype=torch.int64)
+    while lo < hi:
+        p = lo + ((lanes * (hi - lo)) >> 5)
+        c = int((starts[p] <= k).sum())
+        if c == 32:
+            return hi
+        if c > 0:
+            lo = int(p[c - 1])
+        hi = int(p[c]) - 1
+    return lo
+
+
+def block_search_plain(starts: torch.Tensor, limit: int, k_cap: int):
+    """The kernel's search per block of BLOCK_SLOTS slots, in PyTorch (tests
+    only), on K1's `starts` and `limit`: (owner [k_cap] int64, the gaussian
+    of every slot below limit and -1 from there; g_lo, g_hi [blocks] int64,
+    each block's first and last gaussian, -1 for a block wholly past
+    limit). Per block with live slots [b0, e): g_lo and g_hi by
+    `warp_search_plain` at b0 and e - 1, a mark at starts[g] - b0 holding
+    the largest such g of (g_lo, g_hi], and a max-scan of the marks floored
+    at g_lo."""
+    starts = starts.to(torch.int64)
+    lim = int(limit)
+    blocks = -(-k_cap // BLOCK_SLOTS)
+    owner = torch.full((k_cap,), -1, dtype=torch.int64)
+    g_lo = torch.full((blocks,), -1, dtype=torch.int64)
+    g_hi = torch.full((blocks,), -1, dtype=torch.int64)
+    for b in range(blocks):
+        b0 = b * BLOCK_SLOTS
+        if b0 >= lim:
+            continue
+        e = min(lim, b0 + BLOCK_SLOTS)
+        lo, hi = warp_search_plain(starts, b0), warp_search_plain(starts, e - 1)
+        g_lo[b], g_hi[b] = lo, hi
+        mark = torch.zeros(BLOCK_SLOTS, dtype=torch.int64)
+        g = torch.arange(lo + 1, hi + 1)
+        mark.scatter_reduce_(0, starts[g] - b0, g, reduce="amax")
+        owner[b0:e] = torch.cummax(torch.clamp_min(mark, lo), 0).values[:e - b0]
+    return owner, g_lo, g_hi
 
 
 def expand_keys(x: ExpandInputs):
     """K1 wrapper: launches the CUDA kernel for CUDA tensors (and raises if
     that fails); runs `expand_keys_plain` for CPU tensors.
-    Returns (keys [k_cap] int64 unsorted, kept [1] int32)."""
+    Returns (keys [k_cap] of x.key_dtype, unsorted; kept [1] int32)."""
     dev = x.starts.device
     if dev.type == "cpu":
         return expand_keys_plain(x)
@@ -152,13 +211,17 @@ def expand_keys(x: ExpandInputs):
         if x.geo is None:
             raise ValueError("geo2 needs geo")
         check_tensor(x.geo2, "geo2", torch.float32, (n, 6), dev)
-    if n == 0 or x.k_cap <= 0 or x.k_cap >= 1 << 31:
+    if n == 0 or x.k_cap <= 0 or x.k_cap > 1 << 30:
         raise ValueError(f"bad sizes: n={n}, k_cap={x.k_cap}")
+    if x.key_dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"key_dtype {x.key_dtype}, expected torch.int32 or torch.int64")
+    if x.num_tiles << x.bits_g >= 1 << (31 if x.key_dtype == torch.int32 else 63):
+        raise ValueError(f"{x.num_tiles} tiles << {x.bits_g} bits overflow {x.key_dtype} keys")
     if x.rect.data_ptr() % 16:
         raise ValueError("rect must be 16-byte aligned (read as int4)")
 
     lib = load("expand")
-    keys = torch.empty(x.k_cap, dtype=torch.int64, device=dev)
+    keys = torch.empty(x.k_cap, dtype=x.key_dtype, device=dev)
     kept = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -166,7 +229,7 @@ def expand_keys(x: ExpandInputs):
             x.starts.data_ptr(), x.limit.data_ptr(), x.rect.data_ptr(),
             x.geo.data_ptr() if x.geo is not None else None,
             x.geo2.data_ptr() if x.geo2 is not None else None,
-            n, x.k_cap, x.tiles_x, x.num_tiles, x.bits_g,
+            n, x.k_cap, x.tiles_x, x.num_tiles, x.bits_g, int(x.key_dtype == torch.int64),
             keys.data_ptr(), kept.data_ptr(), stream,
         )
     if err != 0:

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
 version on the same CUDA inputs, at small edge-case shapes (empty tiles,
 tiles of 255/256/257/600 keys, a single gaussian, an overflowing key
-capacity, saturating pixels; for the surfel kernels K4-K6 and K1's second
+capacity, saturating pixels; for K1 both key widths, splats whose slots
+span several of its blocks and capacities that cut its blocks; the
+keys-only sort against torch.sort, and the whole route on the card against
+the CPU with 32- and 64-bit keys; for the surfel kernels K4-K6 and K1's second
 ellipse, random surfel scenes with tiles of several key batches, and
 hand-built surfel streams: one emitting lane per warp, one surfel row in
 every tile, pairs within a few ulps of alpha = 1/255; for K2 and K3 the
@@ -31,6 +34,7 @@ from scorp_tpu_torch.ops.raster import (
 from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
 from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
 from scorp_tpu_torch.ops.raster.expand import expand_inputs, expand_keys, expand_keys_plain
+from scorp_tpu_torch.ops.raster.sort import sort_keys
 from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward, surfel_backward_plain
 from scorp_tpu_torch.ops.raster.surfel_composite import (
     surfel_composite,
@@ -71,12 +75,49 @@ def _prep(n, seed, device, w=96, h=72):
                                           (300, 777, True)])
 def test_expand_kernel_matches_plain(dev, n, k_cap, cull):
     prep, w, h = _prep(n, n + k_cap, dev)
+    _check_expand_both_widths(expand_inputs(prep, w, h, k_cap, cull))
+
+
+def _check_expand_both_widths(x):
+    """K1 bit-identical to its plain version with the keys' own width and
+    with 64-bit keys on the same inputs; both widths hold the same values."""
+    assert x.key_dtype == torch.int32
+    keys = []
+    for xw in (x, x._replace(key_dtype=torch.int64)):
+        keys_k, kept_k = expand_keys(xw)
+        keys_p, kept_p = expand_keys_plain(xw)
+        torch.cuda.synchronize()
+        assert keys_k.dtype == xw.key_dtype
+        assert torch.equal(keys_k, keys_p)
+        assert int(kept_k) == int(kept_p)
+        keys.append(keys_k)
+    assert torch.equal(keys[0].long(), keys[1])
+    return keys[0]
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("k_cap", [5333, 2049, 4096])
+def test_expand_kernel_on_splats_spanning_blocks(dev, cull, k_cap):
+    """A few large splats over hundreds of tiles (runs of slots across
+    several 1024-slot blocks: g_lo == g_hi), among small ones; capacities
+    that are no multiple of the block (5333), cut a run (2049) or end at a
+    block's edge (4096), so limit falls inside a block or on its edge."""
+    rng = np.random.default_rng(k_cap)
+    n = 400
+    xyz, scales, quats, opa, shs = _scene(n, 11, dev)
+    big = torch.as_tensor(rng.uniform(0.4, 0.9, (4, 3)), dtype=torch.float32, device=dev)
+    scales[:4] = big
+    opa[:4] = 0.95
+    w, h = 640, 480  # 40 x 30 = 1200 tiles
+    cam = look_at_camera([0, 0.3, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.7, w, h, device=dev)
+    prep = preprocess(xyz, opa, cam, shs=shs, sh_degree=3, scales=scales, quats=quats)
     x = expand_inputs(prep, w, h, k_cap, cull)
-    keys_k, kept_k = expand_keys(x)
-    keys_p, kept_p = expand_keys_plain(x)
-    torch.cuda.synchronize()
-    assert torch.equal(keys_k, keys_p)
-    assert int(kept_k) == int(kept_p)
+    counts = x.rect[:, 2:].long().sub(x.rect[:, :2].long()).prod(dim=1)
+    assert int(counts.max()) > 1024 + 5  # a run longer than a block
+    keys = _check_expand_both_widths(x)
+    if k_cap != 4096:
+        assert int(x.total) > k_cap  # the capacity cuts the keys: limit = k_cap
+    assert int((keys != x.num_tiles << x.bits_g).sum()) > 0
 
 
 def _stream(counts, tiles_x, seed, device, opaque=False):
@@ -145,6 +186,73 @@ def test_wrappers_reject_bad_inputs(dev):
     x = expand_inputs(prep, w, h, 256, cull=True)
     with pytest.raises(TypeError):
         expand_keys(x._replace(geo=x.geo.double()))
+
+
+@pytest.mark.parametrize("dtype,end_bit", [(torch.int32, 31), (torch.int32, 13),
+                                           (torch.int64, 31), (torch.int64, 45)])
+def test_sort_keys_matches_torch_sort(dev, dtype, end_bit):
+    """The keys-only sort against torch.sort on random keys below
+    2**end_bit, with runs of duplicates (K1's sentinels), and on 1 key."""
+    rng = np.random.default_rng(end_bit)
+    for n in (100_003, 1):
+        keys = rng.integers(0, 1 << end_bit, n)
+        keys[: n // 3] = (1 << end_bit) - 1
+        rng.shuffle(keys)
+        keys = torch.as_tensor(keys, dtype=dtype, device=dev)
+        launches = sort_keys.launches
+        got = sort_keys(keys, end_bit)
+        torch.cuda.synchronize()
+        assert sort_keys.launches == launches + 1
+        assert got.dtype == dtype and torch.equal(got, torch.sort(keys).values)
+
+
+def test_sort_keys_rejects_bad_inputs(dev):
+    keys = torch.arange(10, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        sort_keys(keys.float(), 8)
+    with pytest.raises(ValueError):
+        sort_keys(keys, 32)
+    with pytest.raises(ValueError):
+        sort_keys(keys.view(2, 5), 8)
+
+
+def test_route_stream_on_cuda_equals_cpu_for_both_key_widths(dev):
+    """The public route (K1, the keys-only sort, the decode) on the card
+    against the plain route on the CPU: 262,145 rows at 1600x1066 take
+    64-bit keys, 262,144 take 32-bit ones, and the same few hundred live
+    gaussians give one stream in all four runs."""
+    rng = np.random.default_rng(21)
+    n, live_n = 262_145, 400
+    live = np.sort(rng.choice(n - 1, live_n, replace=False))
+    arrays = [np.zeros((n, 3)), np.full((n, 3), 0.03), np.tile([1.0, 0, 0, 0], (n, 1)),
+              np.full(n, 0.5), rng.uniform(0, 1, (n, 3))]
+    arrays[0][live] = rng.uniform(-1.5, 1.5, (live_n, 3))
+    arrays[1][live] = np.exp(rng.normal(np.log(0.05), 0.5, (live_n, 3)))
+    arrays[2][live] = rng.normal(size=(live_n, 4))
+    arrays[3][live] = rng.uniform(0.05, 0.99, live_n)
+    alive = np.zeros(n, bool)
+    alive[live] = True
+    cfg = RasterConfig(max_keys=1 << 16)
+    routes = []
+    for device in (dev, torch.device("cpu")):
+        xyz, scales, quats, opa, colors = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                                           for a in arrays)
+        cam = look_at_camera([0, 0.3, -4.0], [0, 0, 0], [0, 1, 0], 1.2, 0.9, 1600, 1066,
+                             device=device)
+        for rows in (n, n - 1):
+            prep = preprocess(xyz[:rows], opa[:rows], cam, colors_precomp=colors[:rows],
+                              scales=scales[:rows], quats=quats[:rows],
+                              alive=torch.as_tensor(alive[:rows], device=device))
+            x = expand_inputs(prep, 1600, 1066, cfg.max_keys, True)
+            assert x.key_dtype == (torch.int64 if rows == n else torch.int32)
+            launches = sort_keys.launches
+            routes.append([v.cpu() for v in route_stream(prep, 1600, 1066, cfg)])
+            assert sort_keys.launches == launches + (device.type == "cuda")
+    ref = routes[-1]
+    assert int(ref[2].sum()) > 1000 and int(ref[3]) == 0
+    for r in routes[:-1]:
+        for a, b in zip(r, ref):
+            assert torch.equal(a, b)
 
 
 def test_composite_rejects_misaligned_rows(dev):
@@ -247,13 +355,10 @@ def _surfel_route(n, seed, device, opaque=False, w=96, h=72):
 def test_expand_kernel_with_second_ellipse_matches_plain(dev, n, k_cap):
     _, _, (common, ell, circ, w, h) = _surfel_route(n, n + k_cap, dev)
     x = expand_inputs(common, w, h, k_cap, True, ell, circ)
-    keys_k, kept_k = expand_keys(x)
-    keys_p, kept_p = expand_keys_plain(x)
-    torch.cuda.synchronize()
-    assert torch.equal(keys_k, keys_p)
-    assert int(kept_k) == int(kept_p)
+    keys = _check_expand_both_widths(x)
+    kept = int((keys != x.num_tiles << x.bits_g).sum())
     # the union keeps at least what the conic alone keeps
-    assert int(kept_k) >= int(expand_keys(x._replace(geo2=None))[1])
+    assert kept >= int(expand_keys(x._replace(geo2=None))[1])
 
 
 def _check_surfel_forward(got, ref, train):
