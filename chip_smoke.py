@@ -101,11 +101,38 @@ Phases, in order (any failure exits non-zero):
      torch.cuda.set_sync_debug_mode("warn") (`host_sync_counts`, which runs
      on earlier versions of the port too: import this file by its path with
      another checkout's root first on sys.path to count theirs).
+  12. full width, the SCORP object path (`phase_scorp`): write_scene's room
+     scene with 10 orbiting views (8 train, 2 test) as the trained model, the
+     object (the cluster whose centre is nearest the origin) rendered alone
+     into RGBA masks; then `apps.segmentation_3dgs.main` (one K1, sort, K2
+     and K3 per vote; the votes summed over the cameras through the kernels
+     against the plain versions, max |diff| <= 1e-4 x max, the selections
+     and the app's equal where the sum is clear of 0; the selection at
+     least half the cluster, and at least half of it projecting into at
+     least half of the masks, its precision and IoU printed; camera 0's raw
+     votes of all three voting methods through the kernels against the
+     plain versions on the card, max |diff| <= 1e-4 x max |vote| and equal
+     signs where |vote| > 1e-4 x max; the vote's ms),
+     `apps.view_selection.main` (1-3 crops, no kernel), the proxy (the
+     segmented object at SH 0, scaled 0.6, rotated 0.5 rad about z,
+     translated), `apps.align_3dgs_clpe_9dof.align` with the generated
+     64-rotation bank and an empty precomputed matcher (one K1, sort and K2
+     per render; the coarse init's centroid within 0.35 x the object's xyz
+     std; the ICP's seconds and host syncs), a 3.375x render of the aligned
+     proxy equal to the plain versions', at default_raster_config's key
+     slots and at twice as many, where none is dropped, `pc_align_ransac` (2,000 hypotheses)
+     and `adam_algorithm_3d3d_9dof` (3,000 steps) recovering a known
+     similarity to 1e-3, `apps.post_refine_gs.main` for 30
+     steps (one K1, sort, K2 and K3 each; the loss falls; geometry
+     bit-unchanged; PLYs written), `apps.render_3dgs.main` (RGBA PNGs, one
+     K1 and K2 per view), and one `refine_step`'s time, device busy time and
+     host syncs.
 The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
 2DGS eval run of phase 8, K5 and K6 with theirs in the 2DGS training run of
-phase 10. K1's entry also holds its key width, the key sort's device time
+phase 10; K1-K3 also with their launches in phase 12 (`launches_scorp`).
+K1's entry also holds its key width, the key sort's device time
 per call (`sort_ms`; `sort_int64_torch_ms` for torch.sort of the keys as
 int64, the earlier route), torch.sort's on the same keys as `library_ms`,
 and its bound with 8-byte keys beside the bound at the keys' own width.
@@ -118,6 +145,7 @@ non-zero and prints no result. Scratch files go to build/smoke/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -172,6 +200,12 @@ def ptxas_lines(text: str):
 def bench_scene_arrays(n: int, seed: int):
     """bench.py:21-49's room-scale distribution: a box plus 32 clusters,
     SH degree 3, log-normal scales around 0.02, random rotations."""
+    return bench_scene_draw(n, seed)[:5]
+
+
+def bench_scene_draw(n: int, seed: int):
+    """bench_scene_arrays' arrays, then each Gaussian's cluster and the 32
+    cluster centres."""
     from scorp_tpu_torch.core.sh import rgb_to_sh
 
     rng = np.random.default_rng(seed)
@@ -186,7 +220,7 @@ def bench_scene_arrays(n: int, seed: int):
     scales = np.exp(rng.normal(np.log(0.02), 0.5, size=(n, 3))).astype(np.float32)
     quats = rng.normal(size=(n, 4)).astype(np.float32)
     opacity = (1.0 / (1.0 + np.exp(-rng.normal(0.0, 2.0, size=n)))).astype(np.float32)
-    return xyz, shs, scales, quats, opacity
+    return xyz, shs, scales, quats, opacity, cluster_idx, centers
 
 
 def orbit_pose(angle: float, radius: float = 6.5, height: float = 0.5):
@@ -201,14 +235,16 @@ def orbit_pose(angle: float, radius: float = 6.5, height: float = 0.5):
     return r_c2w, -r_c2w.T @ eye
 
 
-def write_scene(scene_dir: str, model_dir: str, n: int, width: int, height: int,
-                seed: int, device, n_views: int = 4) -> None:
+def write_scene(scene_dir: str, model_dir: str | None, n: int, width: int, height: int,
+                seed: int, device, n_views: int = 4):
     """A COLMAP scene (PINHOLE, `n_views` orbiting views, split.yml with the
-    first two views as the test split) and the model's
-    refined_aligned/refined_1000.ply: an `n`-gaussian SH-3 scene drawn with
-    bench.py's distribution. points3D.bin holds the same `n` centres with
-    their DC colours, and the view PNGs are that scene rendered by the port
-    on `device`, so training from the points has something to fit."""
+    first two views as the test split) and, unless `model_dir` is None, the
+    model's refined_aligned/refined_1000.ply: an `n`-gaussian SH-3 scene
+    drawn with bench.py's distribution. points3D.bin holds the same `n`
+    centres with their DC colours, and the view PNGs are that scene rendered
+    by the port on `device`, so training from the points has something to
+    fit. Returns the scene's GaussianData, each view's (name, C2W rotation,
+    W2C translation), each Gaussian's cluster and the cluster centres."""
     import yaml
     from PIL import Image
 
@@ -218,22 +254,24 @@ def write_scene(scene_dir: str, model_dir: str, n: int, width: int, height: int,
     from scorp_tpu_torch.core.sh import sh_to_rgb
     from scorp_tpu_torch.render import render
 
-    xyz, shs, scales, quats, opacity = bench_scene_arrays(n, seed)
+    xyz, shs, scales, quats, opacity, cluster_idx, centers = bench_scene_draw(n, seed)
     g = GaussianData(
         xyz=xyz, f_dc=shs[:, :1], f_rest=shs[:, 1:],
         opacity=np.log(opacity / (1.0 - opacity))[:, None].astype(np.float32),
         scaling=np.log(scales), rotation=quats,
     )
-    save_gaussian_ply(os.path.join(model_dir, "refined_aligned", "refined_1000.ply"), g)
+    if model_dir is not None:
+        save_gaussian_ply(os.path.join(model_dir, "refined_aligned", "refined_1000.ply"), g)
 
     os.makedirs(os.path.join(scene_dir, "images"))
     os.makedirs(os.path.join(scene_dir, "sparse"))
-    names, images = [], {}
+    names, images, views = [], {}, []
     bg = np.zeros(3, np.float32)
     for i in range(n_views):
         r_c2w, t_w2c = orbit_pose(2 * np.pi * i / n_views)
         name = f"view_{i:03d}"
         names.append(name)
+        views.append((name, r_c2w, t_w2c))
         cam = make_camera(r_c2w, t_w2c, FOVX, FOVY, width, height, device=device)
         img = render(cam, g, bg)["render"].clamp(0.0, 1.0).cpu().numpy()
         Image.fromarray(np.round(img.transpose(1, 2, 0) * 255).astype(np.uint8)).save(
@@ -250,6 +288,7 @@ def write_scene(scene_dir: str, model_dir: str, n: int, width: int, height: int,
                                  os.path.join(scene_dir, "sparse", "points3D.bin"))
     with open(os.path.join(scene_dir, "split.yml"), "w") as f:
         yaml.safe_dump({"train": names[2:], "test": names[:2]}, f)
+    return g, views, cluster_idx, centers
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -484,23 +523,31 @@ def check_route(x, route, cfg, label: str) -> None:
           "form's decode")
 
 
-def host_syncs(fn) -> int:
-    """Host synchronisations that one call of fn() asks of PyTorch, counted
+def counted_syncs(fn):
+    """(fn(), the host synchronisations that call asks of PyTorch), counted
     as the warnings of torch.cuda.set_sync_debug_mode("warn")."""
     import warnings
 
     import torch
 
-    fn()
-    torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            fn()
+            out = fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+    return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def host_syncs(fn) -> int:
+    """Host synchronisations that one call of fn() asks of PyTorch, after a
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    return counted_syncs(fn)[1]
 
 
 def host_sync_counts(args, device) -> dict:
@@ -1689,6 +1736,453 @@ def phase_surfel_train_step(args, device):
     }
 
 
+SCORP_VIEWS = 10  # 8 train + 2 test orbiting views
+REFINE_ITERS = 30  # post_refine_gs steps in the SCORP phase
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the 3DGS path's kernels (K1, the key sort, K2, K3) to their
+    plain PyTorch versions, on whatever device the tensors lie, so that a
+    whole entry point can be held against itself through the kernels. The
+    plain versions count no launches: the block fails if a kernel was
+    launched inside it, as it would be if a module looked a wrapper up by
+    another name than these."""
+    before = kernel_launches()
+    mods = sys.modules
+    raster = mods["scorp_tpu_torch.ops.raster"]
+    ex = mods["scorp_tpu_torch.ops.raster.expand"]
+    so = mods["scorp_tpu_torch.ops.raster.sort"]
+    co = mods["scorp_tpu_torch.ops.raster.composite"]
+    bw = mods["scorp_tpu_torch.ops.raster.backward"]
+    saved = (raster.composite, raster.composite_backward, ex.expand_keys, so.sort_keys)
+    raster.composite = co.composite_plain
+    raster.composite_backward = bw.composite_backward_plain
+    ex.expand_keys = ex.expand_keys_plain
+    so.sort_keys = lambda keys, end_bit: so.sort_keys_plain(keys)
+    try:
+        yield
+    finally:
+        raster.composite, raster.composite_backward, ex.expand_keys, so.sort_keys = saved
+    check(kernel_launches() == before, "the plain versions' pass launched no kernel")
+
+
+def kernel_launches() -> dict:
+    from scorp_tpu_torch.ops.raster.backward import composite_backward
+    from scorp_tpu_torch.ops.raster.composite import composite
+    from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
+
+    return {"expand": expand_keys.launches, "sort": sort_keys.launches,
+            "composite": composite.launches, "backward": composite_backward.launches}
+
+
+def reset_launches() -> None:
+    from scorp_tpu_torch.ops.raster.backward import composite_backward
+    from scorp_tpu_torch.ops.raster.composite import composite
+    from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
+
+    expand_keys.launches = sort_keys.launches = 0
+    composite.launches = composite_backward.launches = 0
+
+
+def write_scorp_scene(args, device, scene_dir: str, model_dir: str):
+    """The SCORP stages' inputs: write_scene's room scene with 10 orbiting
+    views (8 train, 2 test) as the 'trained' model point_cloud/iteration_7000,
+    the object (the cluster whose centre is nearest the origin) rendered
+    alone by the port into per-view RGBA masks (alpha > 0.5) under
+    masked_image_rgba/obj/, the scene images with the same alpha (the union
+    of the objects' masks) under masked_image_rgba/masked/, and
+    description.yml. Returns (the object's mask over the scene's Gaussians,
+    the object's GaussianData)."""
+    import yaml
+    from PIL import Image
+
+    from scorp_tpu_torch.core.camera import make_camera
+    from scorp_tpu_torch.core.plyio import save_gaussian_ply
+    from scorp_tpu_torch.render import render
+
+    g, views, cluster_idx, centers = write_scene(scene_dir, None, args.n, args.width,
+                                                 args.height, args.seed, device,
+                                                 n_views=SCORP_VIEWS)
+    save_gaussian_ply(os.path.join(model_dir, "point_cloud", "iteration_7000",
+                                   "point_cloud.ply"), g)
+    obj_mask = cluster_idx == int(np.argmin(np.linalg.norm(centers, axis=1)))
+    g_obj = g.select(obj_mask)
+    obj_dir = os.path.join(scene_dir, "masked_image_rgba", "obj")
+    masked_dir = os.path.join(scene_dir, "masked_image_rgba", "masked")
+    os.makedirs(obj_dir)
+    os.makedirs(masked_dir)
+    for name, r_c2w, t_w2c in views:
+        cam = make_camera(r_c2w, t_w2c, FOVX, FOVY, args.width, args.height, device=device)
+        out = render(cam, g_obj, np.zeros(3, np.float32))
+        alpha = ((out["render_alpha"][0] > 0.5).cpu().numpy() * 255).astype(np.uint8)
+        rgb = (out["render"].clamp(0, 1).cpu().numpy() * 255).astype(np.uint8)
+        Image.fromarray(np.dstack([rgb.transpose(1, 2, 0), alpha])).save(
+            os.path.join(obj_dir, name + ".png"))
+        scene_rgb = np.asarray(Image.open(os.path.join(scene_dir, "images", name + ".png")))
+        Image.fromarray(np.dstack([scene_rgb, alpha])).save(
+            os.path.join(masked_dir, name + ".png"))
+    with open(os.path.join(scene_dir, "description.yml"), "w") as f:
+        yaml.safe_dump({"prompts": "obj", "img_num": 3}, f)
+    return obj_mask, g_obj
+
+
+def check_votes(state, cam, mask, bg, cfg, label: str) -> dict:
+    """One camera's raw vote vector of each voting method through the kernels
+    against the plain versions on the card: max |diff| <= 1e-4 x max |vote|,
+    equal signs wherever |vote| > 1e-4 x max |vote|."""
+    import torch
+
+    from scorp_tpu_torch.pipeline.mask3d import camera_votes
+
+    errs = {}
+    for method in ("gradient", "binary", "projection"):
+        got = camera_votes(state, cam, mask, bg, method, cfg)
+        with plain_kernels():
+            ref = camera_votes(state, cam, mask, bg, method, cfg)
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        clear = ref.abs() > 1e-4 * scale
+        same_sign = torch.equal(torch.sign(got[clear]), torch.sign(ref[clear]))
+        check(bool(got.isfinite().all()) and scale > 0, f"{label} {method} votes finite, "
+              f"not all zero (max |vote| {scale:.4g})")
+        check(err <= 1e-4 * scale, f"{label} {method} votes: max |diff| {err:.3g} <= 1e-4 x "
+              f"{scale:.4g}")
+        check(same_sign, f"{label} {method} votes: equal signs on the {int(clear.sum())} votes "
+              "clear of 0")
+        errs[method] = err
+    return errs
+
+
+def phase_scorp(args, device):
+    """Phase 12: the SCORP object path at full width through its entry
+    points: segmentation_3dgs -> view_selection -> align (coarse init, then
+    render-and-match rounds with an empty precomputed matcher) ->
+    post_refine_gs -> render_3dgs, with launch counters per stage; the vote
+    and a 3.375x alignment render held against the plain versions; RANSAC
+    and the 9-DoF Adam on a known similarity; refine_step's time."""
+    import torch
+    from PIL import Image
+
+    from scorp_tpu_torch.apps import align_3dgs_clpe_9dof as align_app
+    from scorp_tpu_torch.apps import post_refine_gs, render_3dgs, segmentation_3dgs
+    from scorp_tpu_torch.apps import view_selection
+    from scorp_tpu_torch.config import ModelParams
+    from scorp_tpu_torch.core.plyio import GaussianData, load_gaussian_ply, save_gaussian_ply
+    from scorp_tpu_torch.pipeline import solvers
+    from scorp_tpu_torch.pipeline.gs_transform import (
+        gaussians_rotate, gaussians_scale, gaussians_translate,
+    )
+    from scorp_tpu_torch.pipeline.mask3d import (
+        camera_votes, load_mask_rgba, projection_vote_step,
+    )
+    from scorp_tpu_torch.render import default_raster_config, regrow_config, render
+    from scorp_tpu_torch.scene import Scene
+    from scorp_tpu_torch.train import (
+        OptParams, from_gaussian_data, init_adam, refine_step,
+    )
+
+    t_phase = time.perf_counter()
+    scene_dir = os.path.join(WORK, "scorp_scene")
+    model_dir = os.path.join(WORK, "scorp_model")
+    t0 = time.perf_counter()
+    obj_mask, g_obj = write_scorp_scene(args, device, scene_dir, model_dir)
+    print(f"  wrote the scene ({SCORP_VIEWS} views at {args.width}x{args.height}), the "
+          f"model and the masks of a {int(obj_mask.sum())}-gaussian object in "
+          f"{time.perf_counter() - t0:.2f} s")
+    base = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml"]
+    dev_arg = ["--device", str(device)]
+    launches = {}
+
+    # 1. mask lifting
+    reset_launches()
+    t0 = time.perf_counter()
+    masks = segmentation_3dgs.main(base + dev_arg)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    launches["segmentation"] = kernel_launches()
+    sel = masks[0]
+    inter, union = int((sel & obj_mask).sum()), int((sel | obj_mask).sum())
+    print(f"  segmentation_3dgs: {seg_s:.3f} s, {int(sel.sum())} selected, {inter} of them in "
+          f"the cluster (precision {inter / max(int(sel.sum()), 1):.4f}), IoU with the cluster "
+          f"{inter / union:.4f}; launches {launches['segmentation']}")
+    n_train = SCORP_VIEWS - 2
+    check(launches["segmentation"] == {"expand": n_train, "sort": n_train,
+                                       "composite": n_train, "backward": n_train},
+          f"one K1, sort, K2 and K3 per vote ({n_train} cameras x 1 prompt)")
+    dataset = ModelParams(source_path=scene_dir, model_path=model_dir, eval=True,
+                          split_yml_name="split.yml").finalize()
+    scene = Scene(dataset, load_iteration=7000, shuffle=False)
+    state = from_gaussian_data(scene.gaussians, device=device)
+    host_cam = scene.get_train_cameras()[0]
+    cam = host_cam.to_torch(device)
+    mask = load_mask_rgba(os.path.join(scene_dir, "masked_image_rgba", "obj",
+                                       host_cam.image_name + ".png"), host_cam.resolution)
+    bg = torch.zeros(3, device=device)
+    cfg = default_raster_config(state.capacity)
+    # the whole lifting again, summed over the cameras as get_mask3d sums
+    # it, through the kernels and through the plain versions
+    sums = {}
+    n_in = torch.zeros(state.capacity, device=device)
+    for route in ("kernels", "plain"):
+        sums[route] = torch.zeros(state.capacity, device=device)
+        with plain_kernels() if route == "plain" else contextlib.nullcontext():
+            for hc in scene.get_train_cameras():
+                m = load_mask_rgba(os.path.join(scene_dir, "masked_image_rgba", "obj",
+                                                hc.image_name + ".png"), hc.resolution)
+                dcam = hc.to_torch(device)
+                sums[route] += camera_votes(state, dcam, m, bg, "gradient", cfg)
+                if route == "kernels":
+                    n_in += projection_vote_step(state, dcam, torch.as_tensor(m, device=device)) > 0
+    n = len(sel)
+    v_k, v_p = sums["kernels"][:n], sums["plain"][:n]
+    scale = float(v_p.abs().max())
+    clear = (v_p.abs() > 1e-4 * scale).cpu().numpy()
+    clear_k = (v_k.abs() > 1e-4 * scale).cpu().numpy()
+    sel_k, sel_p = (v_k > 0).cpu().numpy(), (v_p > 0).cpu().numpy()
+    seg_err = float((v_k - v_p).abs().max())
+    check(seg_err <= 1e-4 * scale, f"summed gradient votes through the kernels against the "
+          f"plain versions: max |diff| {seg_err:.3g} <= 1e-4 x {scale:.4g}")
+    check(np.array_equal(sel_k[clear], sel_p[clear]),
+          f"the selections through the kernels and the plain versions are equal on the "
+          f"{int(clear.sum())} Gaussians whose summed vote is clear of 0 (|vote| > 1e-4 x max)")
+    check(np.array_equal(sel[clear_k], sel_k[clear_k]),
+          "segmentation_3dgs' selection is its summed votes > 0 wherever they are clear of 0")
+    # the masks are the object's whole silhouette, occluders included, so
+    # the lifting also selects what lies in front of the object: the bound
+    # is the masks' own 3D region, not the cluster
+    n_in = n_in[:n].cpu().numpy()
+    half = n_in >= n_train / 2
+    print("  train masks that hold the centre, selection: "
+          f"{np.bincount(n_in[sel].astype(int), minlength=n_train + 1).tolist()}; cluster: "
+          f"{np.bincount(n_in[obj_mask].astype(int), minlength=n_train + 1).tolist()}; all: "
+          f"{np.bincount(n_in.astype(int), minlength=n_train + 1).tolist()}")
+    check(sel.sum() > 0 and inter >= 0.5 * obj_mask.sum(),
+          f"the selection is non-empty and holds at least half of the cluster "
+          f"({inter} of {int(obj_mask.sum())})")
+    check(int((sel & half).sum()) >= 0.5 * sel.sum(),
+          f"at least half of the selection ({int((sel & half).sum())} of {int(sel.sum())}) "
+          f"projects into at least {n_train // 2} of the {n_train} masks (of all Gaussians "
+          f"{int(half.sum())} of {n})")
+    vote_errs = check_votes(state, cam, mask, bg, cfg, "camera 0")
+    vote_ms = cuda_ms(lambda: camera_votes(state, cam, mask, bg, "gradient", cfg), 5)
+    print(f"  gradient vote: {vote_ms:.3f} ms per camera (CUDA events, median of 5)")
+    del state
+    torch.cuda.empty_cache()
+
+    # 2. view selection
+    reset_launches()
+    t0 = time.perf_counter()
+    view_selection.main(base + dev_arg)
+    view_s = time.perf_counter() - t0
+    crops = sorted(os.listdir(os.path.join(model_dir, "masked_image_rgba_selected", "obj")))
+    print(f"  view_selection: {view_s:.3f} s, crops {crops}")
+    check(1 <= len(crops) <= 3, f"{len(crops)} crops written")
+    check(kernel_launches() == {"expand": 0, "sort": 0, "composite": 0, "backward": 0},
+          "view selection launches no kernel")
+
+    # 3. the generated proxy: the segmented object at SH 0, scaled 0.6,
+    #    rotated 0.5 rad about z and translated (tests/test_scorp_pipeline.py)
+    seg = load_gaussian_ply(os.path.join(model_dir, "gs_seg", "obj.ply"), max_sh_degree=3)
+    proxy = GaussianData(xyz=seg.xyz.copy(), f_dc=seg.f_dc.copy(),
+                         f_rest=np.zeros((seg.n, 0, 3), np.float32),
+                         opacity=seg.opacity.copy(), scaling=seg.scaling.copy(),
+                         rotation=seg.rotation.copy())
+    rz = np.array([[np.cos(0.5), -np.sin(0.5), 0], [np.sin(0.5), np.cos(0.5), 0], [0, 0, 1.0]])
+    gaussians_scale(proxy, 0.6)
+    gaussians_rotate(proxy, rz)
+    gaussians_translate(proxy, np.array([0.8, -0.5, 0.4]))
+    save_gaussian_ply(os.path.join(model_dir, "generated", "obj.ply"), proxy)
+
+    # 4. alignment: every matcher call finds no pairs, so each round renders
+    #    the proxy (upscaling while it covers too few pixels) and keeps the
+    #    coarse init
+    empty = os.path.join(WORK, "no_matches")
+    os.makedirs(empty)
+    renders = [0]
+    icp = {}
+    real_render, real_icp = align_app.render, align_app.best_icp_transform
+
+    def counting_render(*a, **kw):
+        renders[0] += 1
+        return real_render(*a, **kw)
+
+    def timed_icp(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        T, icp["syncs"] = counted_syncs(lambda: real_icp(*a, **kw))
+        icp["seconds"] = time.perf_counter() - t
+        return T
+
+    align_app.render, align_app.best_icp_transform = counting_render, timed_icp
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        align_app.align(dataset, None, "obj", num_iterations=6, opt_12dof_iterations=(3, 4),
+                        rotations_path=os.path.join(WORK, "rotation_matrices"),
+                        matcher_backend="precomputed", matcher_kwargs={"directory": empty},
+                        device=device)
+    finally:
+        align_app.render, align_app.best_icp_transform = real_render, real_icp
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    launches["align"] = kernel_launches()
+    print(f"  align: {align_s:.3f} s, {renders[0]} renders; ICP {icp['seconds']:.3f} s with "
+          f"{icp['syncs']} host syncs; launches {launches['align']}")
+    check(launches["align"] == {"expand": renders[0], "sort": renders[0],
+                                "composite": renders[0], "backward": 0},
+          f"one K1, sort and K2 per alignment render ({renders[0]})")
+    aligned = load_gaussian_ply(os.path.join(model_dir, "generated_aligned", "obj.ply"))
+    c_err = float(np.linalg.norm(aligned.xyz.mean(0) - seg.xyz.mean(0)))
+    extent = float(seg.xyz.std())
+    check(c_err < 0.35 * extent, f"the coarse init brings the proxy's centroid within "
+          f"0.35 x the object's xyz std ({c_err:.4f} < 0.35 x {extent:.4f})")
+
+    # the largest alignment render: 3.375x the camera's resolution
+    big_cam = Scene(dataset, shuffle=False, load_gaussians=False).get_train_cameras()[0]
+    for _ in range(3):
+        big_cam.scale_resolution(1.5)
+    bw, bh = big_cam.resolution
+    dcam = big_cam.to_torch(device)
+    bg_np = np.zeros(3, np.float32)
+    tiles = -(-bw // 16) * -(-bh // 16)
+    # at default_raster_config's key slots (which drop keys here), then
+    # regrown once, as a training loop regrows, until none is dropped
+    a_state = from_gaussian_data(aligned, device=device)
+    big_cfg = default_raster_config(a_state.capacity)
+    for _ in range(2):
+        got = render(dcam, a_state, bg_np, cfg=big_cfg)
+        with plain_kernels():
+            ref = render(dcam, a_state, bg_np, cfg=big_cfg)
+        dropped = int(got["num_dropped_keys"])
+        print(f"  3.375x render: {bw}x{bh}, {tiles} tiles, {big_cfg.max_keys} key slots, dropped "
+              f"keys {dropped} (plain {int(ref['num_dropped_keys'])})")
+        for key in ("render", "render_alpha", "render_depth", "num_dropped_keys"):
+            check(torch.equal(got[key], ref[key]),
+                  f"3.375x render at {big_cfg.max_keys} key slots: {key} equal to the plain "
+                  "versions'")
+        check(float(got["render_alpha"].max()) > 0, "the proxy covers pixels at 3.375x")
+        if not dropped:
+            break
+        big_cfg = regrow_config(big_cfg, dropped)
+    check(dropped == 0, f"no key dropped at {big_cfg.max_keys} key slots")
+
+    # RANSAC and the 9-DoF Adam on 128 correspondences of a known similarity
+    rng = np.random.default_rng(args.seed)
+    P = rng.normal(size=(128, 3))
+    # the Adam's rotation regularizer has a NaN gradient at the identity
+    # (arccos' at 1, in the JAX package too: ROADMAP section 3), so the
+    # axis is one whose path from the Adam's initial rotation avoids it
+    axis = np.array([0.3, 0.5, 0.8]) / np.linalg.norm([0.3, 0.5, 0.8])
+    kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    R_true = np.eye(3) + np.sin(0.5) * kx + (1 - np.cos(0.5)) * kx @ kx
+    s_true, t_true = 1.2, np.array([0.3, -0.2, 0.15])
+    Q = s_true * P @ R_true.T + t_true
+    bad = rng.choice(128, 26, replace=False)
+    Q[bad] += rng.normal(size=(26, 3)) * 5.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R, t, s = solvers.pc_align_ransac(P, Q, threshold=0.05, max_iterations=2000,
+                                      device=device)
+    ransac_ms = 1e3 * (time.perf_counter() - t0)
+    good = np.setdiff1d(np.arange(128), bad)
+    t0 = time.perf_counter()
+    R9, t9, s9, _ = solvers.adam_algorithm_3d3d_9dof(P[good], Q[good], iterations=3000,
+                                                     device=device)
+    adam_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"  RANSAC (2000 hypotheses, 128 pairs, 26 outliers) {ransac_ms:.3f} ms; 9-DoF Adam "
+          f"(3000 steps, the 102 inliers) {adam_ms:.3f} ms (wall, to the result on the host)")
+    for name, (Re, te, se) in (("RANSAC", (R, t, s)), ("9-DoF Adam", (R9, t9, s9))):
+        r_err = float(np.abs(Re - R_true).max())
+        t_err = float(np.linalg.norm(te - t_true) / np.linalg.norm(t_true))
+        s_err = float(np.abs(np.asarray(se) - s_true).max() / s_true)
+        check(r_err <= 1e-3 and t_err <= 1e-3 and s_err <= 1e-3,
+              f"{name} recovers R ({r_err:.3g} <= 1e-3), t ({t_err:.3g}) and s ({s_err:.3g}) "
+              "<= 1e-3 relative")
+
+    # 5. refinement
+    reset_launches()
+    t0 = time.perf_counter()
+    refined, log = post_refine_gs.main(
+        base + ["--sh_degree", "0", "--images", os.path.join("masked_image_rgba", "masked"),
+                "--iterations", str(REFINE_ITERS), "--quiet"] + dev_arg)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    launches["refine"] = kernel_launches()
+    losses = log["loss"]
+    k = min(10, len(losses) // 2)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    print(f"  post_refine_gs: {refine_s:.3f} s for {len(losses)} iterations; loss mean of the "
+          f"first {k} {first:.6f}, of the last {k} {last:.6f}; launches {launches['refine']}")
+    n_it = REFINE_ITERS
+    check(launches["refine"] == {"expand": n_it, "sort": n_it, "composite": n_it,
+                                 "backward": n_it},
+          f"one K1, sort, K2 and K3 per refine step ({n_it})")
+    check(len(losses) == n_it and all(np.isfinite(losses)) and last < first,
+          "every refine loss is finite and the loss falls")
+    out_dir = os.path.join(model_dir, "refined_aligned")
+    written = load_gaussian_ply(os.path.join(out_dir, f"refined_{n_it}.ply"))
+    check(os.path.exists(os.path.join(out_dir, "obj.ply")),
+          f"refined_aligned/obj.ply and refined_{n_it}.ply written")
+    check(all(np.array_equal(getattr(written, k), getattr(aligned, k))
+              for k in ("xyz", "rotation", "scaling", "opacity")),
+          "xyz, rotation, scaling and opacity bit-unchanged by the refinement")
+    check(not np.array_equal(written.f_dc, aligned.f_dc), "the colours moved")
+
+    # 6. eval rendering of the refined object (and the segmented baseline)
+    reset_launches()
+    results = render_3dgs.main(base + ["--iter", str(n_it), "--sh_degree", "0"] + dev_arg)
+    launches["render"] = kernel_launches()
+    n_png = 0
+    for out_dir, records in results.items():
+        for r in records:
+            with Image.open(os.path.join(out_dir, r["image"] + ".png")) as im:
+                rgba = np.asarray(im)
+            check(rgba.shape == (args.height, args.width, 4) and rgba[..., 3].any(),
+                  f"{os.path.basename(out_dir)}/{r['image']}.png: RGBA, object visible")
+            n_png += 1
+    check(launches["render"]["expand"] == launches["render"]["composite"] == n_png,
+          f"one K1 and K2 per eval view ({n_png})")
+
+    # refine_step alone at full width: time, device busy, host syncs
+    r_state = from_gaussian_data(aligned, device=device)
+    r_adam = init_adam(r_state)
+    with Image.open(os.path.join(scene_dir, "masked_image_rgba", "masked",
+                                 host_cam.image_name + ".png")) as im:
+        rgba = np.asarray(im, np.float32).transpose(2, 0, 1) / 255.0
+    gt_img = torch.as_tensor(rgba[:3], device=device)
+    gt_alpha = torch.as_tensor(rgba[3:4], device=device)
+    r_cfg = default_raster_config(r_state.capacity)
+    opt = OptParams(iterations=30_000)
+
+    def step():
+        return refine_step(r_state, r_adam, cam, gt_img, gt_alpha, 100, bg, opt=opt,
+                           sh_degree=0, cfg=r_cfg)
+
+    step_ms = cuda_ms(step, 10)
+    busy, top = device_profile(step, 5)
+    syncs = host_syncs(step)
+    print(f"  refine_step ({r_state.capacity} capacity, {args.width}x{args.height}): "
+          f"{step_ms:.3f} ms (median of 10), device busy {busy:.3f} ms, host syncs per step "
+          f"{syncs}")
+    for name, ms in top[:5]:
+        print(f"    {ms:8.3f} ms  {name}")
+    wall = time.perf_counter() - t_phase
+    print(f"  phase wall {wall:.2f} s")
+    totals = {k: sum(v[k] for v in launches.values())
+              for k in ("expand", "sort", "composite", "backward")}
+    return totals, {
+        "launches_by_stage": launches, "vote_ms": vote_ms, "vote_err": vote_errs,
+        "icp_s": icp["seconds"], "icp_syncs": icp["syncs"], "ransac_ms": ransac_ms,
+        "adam_ms": adam_ms, "refine_step_ms": step_ms, "refine_busy_ms": busy,
+        "refine_syncs": syncs, "wall_s": wall, "seg_vote_err": seg_err,
+        "big_render": [bw, bh, tiles, big_cfg.max_keys], "iou": inter / union,
+        "precision": inter / max(int(sel.sum()), 1),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1799,6 +2293,14 @@ def main(argv=None) -> int:
           "the count sees the synchronisation of one int() of a CUDA tensor")
     syncs = host_sync_counts(args, device)
     print(f"  host synchronisations: {json.dumps(syncs)}")
+    torch.cuda.empty_cache()
+
+    print(f"[12] SCORP object path at full width: {args.n} gaussians, {SCORP_VIEWS} views at "
+          f"{args.width}x{args.height}: segmentation_3dgs, view_selection, align, "
+          "post_refine_gs, render_3dgs")
+    scorp_launches, scorp = phase_scorp(args, device)
+    print(f"  SCORP: {json.dumps(scorp)}")
+    shutil.rmtree(WORK, ignore_errors=True)
 
     def timed(d):
         return {k: d[k] for k in ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by")}
@@ -1816,17 +2318,20 @@ def main(argv=None) -> int:
          "sort_radix_ms": full["k1"]["sort_radix_ms"],
          "sort_int64_torch_ms": full["k1"]["sort_int64_torch_ms"],
          "bound_ms_int64_keys": full["k1"]["bound_ms_int64_keys"],
-         "kept": full["k1"]["kept"], "kept_golden": full["k1"]["golden"]},
+         "kept": full["k1"]["kept"], "kept_golden": full["k1"]["golden"],
+         "launches_scorp": scorp_launches["expand"]},
         {"name": "K2 composite", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train_launches["composite"],
          "launches_eval": launches["composite"],
          "max_abs_err": k2_err, "max_abs_diff": k2_err, **timed(full["k2"]),
          "ms_train": step["k2_train_ms"], "library_ms": None,
-         "slots": full["k2"]["slots"], "slots_train": step["k2_slots"]},
+         "slots": full["k2"]["slots"], "slots_train": step["k2_slots"],
+         "launches_scorp": scorp_launches["composite"]},
         {"name": "K3 composite_backward", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train_launches["backward"],
          "max_abs_err": k3_err, **timed(step["k3"]),
-         "library_ms": None, "slots": step["k3"]["slots"], "atomics": step["k3"]["atomics"]},
+         "library_ms": None, "slots": step["k3"]["slots"], "atomics": step["k3"]["atomics"],
+         "launches_scorp": scorp_launches["backward"]},
         {"name": "K4 surfel_composite", "route": "cuda", "source": SK_SOURCE,
          "replaces": K4_REPLACES, "launches": launches2d["surfel_composite"],
          "launches_2dgs_train_evals": train2d_launches["surfel_composite"],

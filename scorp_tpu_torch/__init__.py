@@ -7,14 +7,19 @@ first use by `ops/raster/_build.py` and bound with ctypes. Each kernel keeps a
 plain PyTorch version beside it: the wrapper runs that version only for CPU
 tensors, and launches the kernel (or raises) for CUDA tensors.
 
-Ported so far (the eval-rendering slice of the 3DGS path):
+Ported so far:
   core/      SH, quaternions, camera matrices, PLY codec, COLMAP parsing
-  config.py  ModelParams / PipelineParams / cfg_args merge
+  config.py  ModelParams / PipelineParams / OptimizationParams, cfg_args merge
   scene/     host cameras with lazy ground truth, dataset readers, Scene
-  ops/raster preprocess, key expansion (kernel K1), forward compositor (K2)
-  train/     the padded Gaussian store (rendering subset)
-  render.py  the reference renderer's output dictionary
-  apps/      render_3dgs
+  ops/raster the 3DGS and 2DGS surfel rasterizers and their kernels K1-K6
+  ops/       losses, KNN
+  train/     the padded Gaussian store, Adam, the 3DGS and 2DGS training
+             steps, densification, the SCORP refinement step
+  pipeline/  SCORP: mask lifting, view scoring, ICP, pose solvers, matchers
+  render.py, render2d.py, assets.py
+  apps/      render_3dgs, train_3dgs, render_2dgs, train_2dgs,
+             segmentation_3dgs, view_selection, align_3dgs_clpe_9dof,
+             post_refine_gs
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 GPU they raise rather than fall back to the CPU.

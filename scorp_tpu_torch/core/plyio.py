@@ -139,6 +139,16 @@ class GaussianData:
             rotation=np.concatenate([self.rotation, other.rotation], 0),
         )
 
+    def select(self, mask_or_idx: np.ndarray) -> "GaussianData":
+        return GaussianData(
+            xyz=self.xyz[mask_or_idx],
+            f_dc=self.f_dc[mask_or_idx],
+            f_rest=self.f_rest[mask_or_idx],
+            opacity=self.opacity[mask_or_idx],
+            scaling=self.scaling[mask_or_idx],
+            rotation=self.rotation[mask_or_idx],
+        )
+
 
 def save_gaussian_ply(path: str, g: GaussianData) -> None:
     """Write a Gaussian checkpoint in the reference PLY schema."""

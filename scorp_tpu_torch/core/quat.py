@@ -1,7 +1,9 @@
-"""Quaternion -> rotation matrix, torch port of `scorp_tpu.core.quat`.
+"""Quaternion / rotation-matrix math, torch port of `scorp_tpu.core.quat`.
 
 Quaternions are (w, x, y, z) and need not be pre-normalized (normalization
-happens inside, as in the original 3DGS `build_rotation`).
+happens inside, as in the original 3DGS `build_rotation`). `rotmat_to_quat`
+keeps the reference's numerically stable branch choice (pytorch3d style):
+the candidate of the largest squared component, denominators floored at 0.1.
 """
 
 from __future__ import annotations
@@ -37,4 +39,51 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
             torch.stack([r20, r21, r22], dim=-1),
         ],
         dim=-2,
+    )
+
+
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation matrix -> [..., 4] (w,x,y,z) unit quaternion.
+
+    Builds the four candidate quaternions from the diagonal and keeps the
+    one whose squared component is largest (the first on ties, as
+    `jnp.argmax`), so the sign matches the JAX package's."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    q_abs2 = torch.stack(
+        [
+            1.0 + m00 + m11 + m22,
+            1.0 + m00 - m11 - m22,
+            1.0 - m00 + m11 - m22,
+            1.0 - m00 - m11 + m22,
+        ],
+        dim=-1,
+    )
+    q_abs = torch.sqrt(torch.clamp_min(q_abs2, 0.0))
+    quat_by_w = torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    quat_by_x = torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], dim=-1)
+    quat_by_y = torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], dim=-1)
+    quat_by_z = torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], dim=-1)
+    candidates = torch.stack([quat_by_w, quat_by_x, quat_by_y, quat_by_z], dim=-2)
+    # the floor avoids a division by 0 in the branches that are not taken
+    candidates = candidates / (2.0 * torch.clamp_min(q_abs, 0.1))[..., :, None]
+    best = torch.argmax(q_abs2, dim=-1)
+    idx = best[..., None, None].expand(*best.shape, 1, 4)
+    quat = torch.gather(candidates, -2, idx)[..., 0, :]
+    return quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b of (w,x,y,z) quaternions, batched."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
     )

@@ -1,0 +1,122 @@
+"""Pluggable pairwise feature matching, port of `scorp_tpu.pipeline.matching`.
+
+The reference matches with MASt3R (ViT inference + reciprocal nearest
+neighbours). Behind the narrow interface `match(imgA, imgB) -> (uv0, uv1)`
+this port has:
+
+  * "precomputed": loads matches from .npz files on disk;
+  * "sift" / "orb": classical reciprocal matching via cv2, imported when a
+    matcher is made (never at module import, so the GPU path needs no cv2);
+  * "mast3r": not ported; it needs the MASt3R checkpoint, which the
+    repository does not ship, and raises naming it.
+
+The backends replicate the reference's post-processing: a 3px border filter,
+a uniform subsample to n_points_per_cam, coordinates rescaled to the
+original resolutions.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+from PIL import Image
+
+
+def _postprocess(uv0, uv1, shape0, shape1, size0, size1, n_points: int):
+    """Border filter + uniform subsample + rescale to original coords."""
+    h0, w0 = shape0
+    h1, w1 = shape1
+    valid = (
+        (uv0[:, 0] >= 3) & (uv0[:, 0] < w0 - 3) & (uv0[:, 1] >= 3) & (uv0[:, 1] < h0 - 3)
+        & (uv1[:, 0] >= 3) & (uv1[:, 0] < w1 - 3) & (uv1[:, 1] >= 3) & (uv1[:, 1] < h1 - 3)
+    )
+    uv0, uv1 = uv0[valid], uv1[valid]
+    num = uv0.shape[0]
+    n_viz = min(n_points, num)
+    if num == 0:
+        return uv0.astype(int), uv1.astype(int)
+    idx = np.round(np.linspace(0, num - 1, n_viz)).astype(int)
+    uv0, uv1 = uv0[idx], uv1[idx]
+    uv0 = (uv0 / np.array([[w0, h0]]) * np.array([size0])).astype(int)
+    uv1 = (uv1 / np.array([[w1, h1]]) * np.array([size1])).astype(int)
+    return uv0, uv1
+
+
+class CV2Matcher:
+    """Classical reciprocal feature matcher (SIFT by default)."""
+
+    def __init__(self, method: str = "sift", n_features: int = 4096):
+        import cv2
+
+        self._cv2 = cv2
+        if method == "sift":
+            self.det = cv2.SIFT_create(nfeatures=n_features)
+            self.norm = cv2.NORM_L2
+        else:
+            self.det = cv2.ORB_create(nfeatures=n_features)
+            self.norm = cv2.NORM_HAMMING
+
+    def __call__(self, image1: Image.Image, image2: Image.Image,
+                 n_points_per_cam: int = 100, **_):
+        cv2 = self._cv2
+        a1 = cv2.cvtColor(np.array(image1.convert("RGB")), cv2.COLOR_RGB2GRAY)
+        a2 = cv2.cvtColor(np.array(image2.convert("RGB")), cv2.COLOR_RGB2GRAY)
+        k1, d1 = self.det.detectAndCompute(a1, None)
+        k2, d2 = self.det.detectAndCompute(a2, None)
+        if d1 is None or d2 is None or len(k1) < 4 or len(k2) < 4:
+            return np.zeros((0, 2), int), np.zeros((0, 2), int)
+        matcher = cv2.BFMatcher(self.norm, crossCheck=True)  # reciprocal NN
+        matches = sorted(matcher.match(d1, d2), key=lambda m: m.distance)
+        uv0 = np.array([k1[m.queryIdx].pt for m in matches])
+        uv1 = np.array([k2[m.trainIdx].pt for m in matches])
+        if len(uv0) == 0:
+            return np.zeros((0, 2), int), np.zeros((0, 2), int)
+        return _postprocess(
+            uv0, uv1, a1.shape, a2.shape, image1.size, image2.size, n_points_per_cam
+        )
+
+
+class PrecomputedMatcher:
+    """Loads (uv0, uv1) pairs from {dir}/{key}.npz with arrays uv0/uv1."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+
+    def __call__(self, image1, image2, n_points_per_cam: int = 100, key: str = "", **_):
+        path = os.path.join(self.directory, f"{key}.npz")
+        if not os.path.exists(path):
+            return np.zeros((0, 2), int), np.zeros((0, 2), int)
+        data = np.load(path)
+        uv0, uv1 = data["uv0"], data["uv1"]
+        n = min(n_points_per_cam, len(uv0))
+        idx = np.round(np.linspace(0, len(uv0) - 1, n)).astype(int) if len(uv0) else []
+        return uv0[idx].astype(int), uv1[idx].astype(int)
+
+
+class MASt3RMatcher:
+    """The MASt3R backend: not ported. It needs the checkpoint below, which
+    the repository does not ship; making one raises, naming it."""
+
+    CKPT = "checkpoints/mast3r/MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth"
+
+    def __init__(self, checkpoint: str | None = None, **_):
+        path = checkpoint or self.CKPT
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"the mast3r matcher needs the MASt3R checkpoint {path}, which is not "
+                "present; use --matcher sift, orb or precomputed")
+        raise NotImplementedError(
+            f"the mast3r matcher (checkpoint {path}) is not ported to scorp_tpu_torch "
+            "yet; use --matcher sift, orb or precomputed")
+
+
+def get_matcher(backend: str = "auto", **kwargs):
+    """Factory: auto prefers MASt3R when its checkpoint exists, else SIFT."""
+    if backend == "auto":
+        backend = "mast3r" if os.path.exists(MASt3RMatcher.CKPT) else "sift"
+    if backend == "mast3r":
+        return MASt3RMatcher(**kwargs)
+    if backend == "precomputed":
+        return PrecomputedMatcher(**kwargs)
+    return CV2Matcher(method=backend, **kwargs)

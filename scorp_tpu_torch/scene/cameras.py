@@ -6,8 +6,9 @@ translation; ground truth (image, alpha, sensor depth, estimated depth) is
 loaded lazily per access; depth PNGs are stored in millimeters and scaled
 by 1e3; znear=0.01 / zfar=100. The
 device-facing view is `to_torch(device)`, returning a `core.camera.Camera`
-for the rasterizer. (The alignment stage's mutation APIs come with the SCORP
-slice.)
+for the rasterizer, cached per resolution, field of view, pose and device,
+so that the alignment stage's `scale_resolution` / `restore_resolution`
+round trip finds the original device camera again.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from PIL import Image
 
 from ..core.camera import Camera as DeviceCamera
-from ..core.camera import make_camera
+from ..core.camera import make_camera, world_to_view
 
 
 class GroundTruth(NamedTuple):
@@ -66,6 +67,10 @@ def load_ground_truth(
 
 
 class Camera:
+    # device cameras kept per host camera: the original and the alignment
+    # stage's three upscaled resolutions
+    DEVICE_CACHE_SIZE = 4
+
     def __init__(
         self,
         colmap_id,
@@ -88,6 +93,8 @@ class Camera:
         self.T = T
         self.fovx = fovx
         self.fovy = fovy
+        self._fovx_orig = fovx
+        self._fovy_orig = fovy
         self.image_name = image_name
         self.resolution = tuple(resolution)
         self.resolution_original = tuple(resolution)
@@ -99,7 +106,24 @@ class Camera:
         self.trans = trans
         self.scale = scale
         self._gt: GroundTruth | None = None
-        self._device_cache: dict | None = None
+        self._device_cache: dict = {}
+
+    # the reference's property aliases
+    @property
+    def FoVx(self):
+        return self.fovx
+
+    @property
+    def FoVy(self):
+        return self.fovy
+
+    @property
+    def image_width(self):
+        return self.resolution[0]
+
+    @property
+    def image_height(self):
+        return self.resolution[1]
 
     def gt(self, release: bool = True) -> GroundTruth:
         """Lazy GT: load at the ORIGINAL resolution."""
@@ -115,13 +139,42 @@ class Camera:
     def to_torch(self, device: str | torch.device = "cuda") -> DeviceCamera:
         key = (self.resolution, self.fovx, self.fovy, self.R.tobytes(),
                self.T.tobytes(), str(device))
-        if self._device_cache is not None and self._device_cache.get("key") == key:
-            return self._device_cache["cam"]
-        cam = make_camera(
-            self.R, self.T, self.fovx, self.fovy,
-            self.resolution[0], self.resolution[1],
-            znear=self.znear, zfar=self.zfar, trans=self.trans, scale=self.scale,
-            device=device,
-        )
-        self._device_cache = {"key": key, "cam": cam}
+        cam = self._device_cache.get(key)
+        if cam is None:
+            cam = make_camera(
+                self.R, self.T, self.fovx, self.fovy,
+                self.resolution[0], self.resolution[1],
+                znear=self.znear, zfar=self.zfar, trans=self.trans, scale=self.scale,
+                device=device,
+            )
+            if len(self._device_cache) >= self.DEVICE_CACHE_SIZE:
+                self._device_cache.pop(next(iter(self._device_cache)))
+            self._device_cache[key] = cam
         return cam
+
+    # the alignment stage's mutation APIs
+    def modify_extrinsics(self, R_c2w: np.ndarray, T_w2c: np.ndarray):
+        self.R = R_c2w
+        self.T = T_w2c
+
+    def scale_resolution(self, s: float):
+        self.resolution = (int(self.resolution[0] * s), int(self.resolution[1] * s))
+
+    def restore_resolution(self):
+        self.resolution = self.resolution_original
+
+    def scale_fov(self, sx: float, sy: float):
+        self.fovx = self.fovx * sx
+        self.fovy = self.fovy * sy
+
+    def restore_fov(self):
+        self.fovx = self._fovx_orig
+        self.fovy = self._fovy_orig
+
+    @property
+    def camera_center(self) -> np.ndarray:
+        return np.linalg.inv(world_to_view(self.R, self.T, self.trans, self.scale))[:3, 3]
+
+    @property
+    def world_view_transform(self) -> np.ndarray:
+        return world_to_view(self.R, self.T, self.trans, self.scale).T

@@ -42,7 +42,10 @@ class Scene:
         pretrained_ply_path_list: list[str] | None = None,
         max_sh_degree: int = 3,
         load_gaussians: bool = True,
+        rng: random.Random | None = None,
     ):
+        """`rng` shuffles the camera lists (default: the global `random`,
+        as the reference does)."""
         self.model_path = args.model_path
         self.loaded_iter = None
         self.gaussians: GaussianData | None = None
@@ -84,8 +87,9 @@ class Scene:
         train_infos = list(info.train_cameras)
         test_infos = list(info.test_cameras)
         if shuffle:
-            random.shuffle(train_infos)
-            random.shuffle(test_infos)
+            shuffler = rng if rng is not None else random
+            shuffler.shuffle(train_infos)
+            shuffler.shuffle(test_infos)
 
         self.cameras_extent = info.nerf_normalization["radius"]
 

@@ -14,5 +14,6 @@ from .state import (  # noqa: F401
     to_gaussian_data,
 )
 from .densify import accumulate_stats, count_densify_candidates, densify_and_prune, reset_opacity  # noqa: F401
+from .refine import FROZEN_REFINE, refine_step  # noqa: F401
 from .step import OptParams, StepMetrics, train_step  # noqa: F401
 from .step2d import Opt2DParams, train_step_2d  # noqa: F401
