@@ -127,11 +127,33 @@ Phases, in order (any failure exits non-zero):
      bit-unchanged; PLYs written), `apps.render_3dgs.main` (RGBA PNGs, one
      K1 and K2 per view), and one `refine_step`'s time, device busy time and
      host syncs.
+  13. full width, the 2DGS object path and mesh extraction
+     (`phase_scorp2d`), on phase 12's scene and masks with the scene's
+     Gaussians as surfels at iteration 25000: `apps.segmentation_2dgs.main`
+     (one K1, sort, K5 and K6 per surfel vote; the summed votes and camera
+     0's votes of the three methods against the plain versions, as in phase
+     12; recall and precision against the cluster printed, no limit),
+     `apps.view_selection.main`, `apps.trellis_img2gs.main --proxy_dir`
+     (the 2DGS segmentation's object as a 3DGS proxy, as phase 12 builds
+     it; copied byte for byte), `apps.truncate_opacity.main` (the .bak, the
+     count kept at opacity >= 0.1), `apps.align_2dgs_clpe_9dof.align`
+     (ALIGN2D_ROUNDS rounds with an empty precomputed matcher: one K1, sort
+     and K4 per scene-object render, one K1, sort and K2 per proxy render;
+     the coarse init's centroid within 0.35 x the object's xyz std), and
+     `apps.extract_mesh.main` at its defaults (256^3 voxels, 8 train views:
+     one K1, sort and K4 per view; the card's TSDF grid against tsdf_fuse
+     on the CPU from the same depth and colour maps, weights equal, tsdf
+     and colours within 1e-5; fuse.ply and fuse_post.ply non-empty; the
+     seconds of fusion, marching cubes and post-processing and the peak
+     device memory printed).
 The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
 2DGS eval run of phase 8, K5 and K6 with theirs in the 2DGS training run of
-phase 10; K1-K3 also with their launches in phase 12 (`launches_scorp`).
+phase 10; K1-K3 also with their launches in phase 12 (`launches_scorp`),
+K1, K2 and K4-K6 with theirs in phase 13's object stages
+(`launches_scorp2d`), K1 and K4 with theirs in its mesh extraction
+(`launches_mesh`).
 K1's entry also holds its key width, the key sort's device time
 per call (`sort_ms`; `sort_int64_torch_ms` for torch.sort of the keys as
 int64, the earlier route), torch.sort's on the same keys as `library_ms`,
@@ -146,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import re
@@ -1742,12 +1765,12 @@ REFINE_ITERS = 30  # post_refine_gs steps in the SCORP phase
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the 3DGS path's kernels (K1, the key sort, K2, K3) to their
-    plain PyTorch versions, on whatever device the tensors lie, so that a
-    whole entry point can be held against itself through the kernels. The
-    plain versions count no launches: the block fails if a kernel was
-    launched inside it, as it would be if a module looked a wrapper up by
-    another name than these."""
+    """Route every kernel of the rasterizers (K1, the key sort, K2, K3, and
+    the surfel compositors K4-K6) to its plain PyTorch version, on whatever
+    device the tensors lie, so that a whole entry point can be held against
+    itself through the kernels. The plain versions count no launches: the
+    block fails if a kernel was launched inside it, as it would be if a
+    module looked a wrapper up by another name than these."""
     before = kernel_launches()
     mods = sys.modules
     raster = mods["scorp_tpu_torch.ops.raster"]
@@ -1755,36 +1778,57 @@ def plain_kernels():
     so = mods["scorp_tpu_torch.ops.raster.sort"]
     co = mods["scorp_tpu_torch.ops.raster.composite"]
     bw = mods["scorp_tpu_torch.ops.raster.backward"]
-    saved = (raster.composite, raster.composite_backward, ex.expand_keys, so.sort_keys)
+    sc = mods["scorp_tpu_torch.ops.raster.surfel_composite"]
+    sb = mods["scorp_tpu_torch.ops.raster.surfel_backward"]
+    names = ("composite", "composite_backward", "surfel_composite", "surfel_composite_train",
+             "surfel_backward")
+    saved = tuple(getattr(raster, k) for k in names) + (ex.expand_keys, so.sort_keys)
     raster.composite = co.composite_plain
     raster.composite_backward = bw.composite_backward_plain
+    raster.surfel_composite = sc.surfel_composite_plain
+    raster.surfel_composite_train = functools.partial(sc.surfel_composite_plain, train=True)
+    raster.surfel_backward = sb.surfel_backward_plain
     ex.expand_keys = ex.expand_keys_plain
     so.sort_keys = lambda keys, end_bit: so.sort_keys_plain(keys)
     try:
         yield
     finally:
-        raster.composite, raster.composite_backward, ex.expand_keys, so.sort_keys = saved
+        for k, fn in zip(names, saved):
+            setattr(raster, k, fn)
+        ex.expand_keys, so.sort_keys = saved[-2:]
     check(kernel_launches() == before, "the plain versions' pass launched no kernel")
 
 
-def kernel_launches() -> dict:
+def _wrappers() -> dict:
     from scorp_tpu_torch.ops.raster.backward import composite_backward
     from scorp_tpu_torch.ops.raster.composite import composite
     from scorp_tpu_torch.ops.raster.expand import expand_keys
     from scorp_tpu_torch.ops.raster.sort import sort_keys
+    from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward
+    from scorp_tpu_torch.ops.raster.surfel_composite import (
+        surfel_composite, surfel_composite_train,
+    )
 
-    return {"expand": expand_keys.launches, "sort": sort_keys.launches,
-            "composite": composite.launches, "backward": composite_backward.launches}
+    return {"expand": expand_keys, "sort": sort_keys, "composite": composite,
+            "backward": composite_backward, "surfel_composite": surfel_composite,
+            "surfel_composite_train": surfel_composite_train,
+            "surfel_backward": surfel_backward}
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launch count (K1, the sort, K2-K6)."""
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def reset_launches() -> None:
-    from scorp_tpu_torch.ops.raster.backward import composite_backward
-    from scorp_tpu_torch.ops.raster.composite import composite
-    from scorp_tpu_torch.ops.raster.expand import expand_keys
-    from scorp_tpu_torch.ops.raster.sort import sort_keys
+    for fn in _wrappers().values():
+        fn.launches = 0
 
-    expand_keys.launches = sort_keys.launches = 0
-    composite.launches = composite_backward.launches = 0
+
+def launches_of(**counts) -> dict:
+    """kernel_launches()' form with these counts and 0 for every other
+    kernel."""
+    return {k: counts.get(k, 0) for k in _wrappers()}
 
 
 def write_scorp_scene(args, device, scene_dir: str, model_dir: str):
@@ -1829,7 +1873,7 @@ def write_scorp_scene(args, device, scene_dir: str, model_dir: str):
     return obj_mask, g_obj
 
 
-def check_votes(state, cam, mask, bg, cfg, label: str) -> dict:
+def check_votes(state, cam, mask, bg, cfg, label: str, surfel: bool = False) -> dict:
     """One camera's raw vote vector of each voting method through the kernels
     against the plain versions on the card: max |diff| <= 1e-4 x max |vote|,
     equal signs wherever |vote| > 1e-4 x max |vote|."""
@@ -1839,9 +1883,9 @@ def check_votes(state, cam, mask, bg, cfg, label: str) -> dict:
 
     errs = {}
     for method in ("gradient", "binary", "projection"):
-        got = camera_votes(state, cam, mask, bg, method, cfg)
+        got = camera_votes(state, cam, mask, bg, method, cfg, surfel)
         with plain_kernels():
-            ref = camera_votes(state, cam, mask, bg, method, cfg)
+            ref = camera_votes(state, cam, mask, bg, method, cfg, surfel)
         scale = float(ref.abs().max())
         err = float((got - ref).abs().max())
         clear = ref.abs() > 1e-4 * scale
@@ -1909,8 +1953,8 @@ def phase_scorp(args, device):
           f"the cluster (precision {inter / max(int(sel.sum()), 1):.4f}), IoU with the cluster "
           f"{inter / union:.4f}; launches {launches['segmentation']}")
     n_train = SCORP_VIEWS - 2
-    check(launches["segmentation"] == {"expand": n_train, "sort": n_train,
-                                       "composite": n_train, "backward": n_train},
+    check(launches["segmentation"] == launches_of(expand=n_train, sort=n_train,
+                                                  composite=n_train, backward=n_train),
           f"one K1, sort, K2 and K3 per vote ({n_train} cameras x 1 prompt)")
     dataset = ModelParams(source_path=scene_dir, model_path=model_dir, eval=True,
                           split_yml_name="split.yml").finalize()
@@ -1980,8 +2024,7 @@ def phase_scorp(args, device):
     crops = sorted(os.listdir(os.path.join(model_dir, "masked_image_rgba_selected", "obj")))
     print(f"  view_selection: {view_s:.3f} s, crops {crops}")
     check(1 <= len(crops) <= 3, f"{len(crops)} crops written")
-    check(kernel_launches() == {"expand": 0, "sort": 0, "composite": 0, "backward": 0},
-          "view selection launches no kernel")
+    check(kernel_launches() == launches_of(), "view selection launches no kernel")
 
     # 3. the generated proxy: the segmented object at SH 0, scaled 0.6,
     #    rotated 0.5 rad about z and translated (tests/test_scorp_pipeline.py)
@@ -2031,8 +2074,8 @@ def phase_scorp(args, device):
     launches["align"] = kernel_launches()
     print(f"  align: {align_s:.3f} s, {renders[0]} renders; ICP {icp['seconds']:.3f} s with "
           f"{icp['syncs']} host syncs; launches {launches['align']}")
-    check(launches["align"] == {"expand": renders[0], "sort": renders[0],
-                                "composite": renders[0], "backward": 0},
+    check(launches["align"] == launches_of(expand=renders[0], sort=renders[0],
+                                           composite=renders[0]),
           f"one K1, sort and K2 per alignment render ({renders[0]})")
     aligned = load_gaussian_ply(os.path.join(model_dir, "generated_aligned", "obj.ply"))
     c_err = float(np.linalg.norm(aligned.xyz.mean(0) - seg.xyz.mean(0)))
@@ -2117,8 +2160,8 @@ def phase_scorp(args, device):
     print(f"  post_refine_gs: {refine_s:.3f} s for {len(losses)} iterations; loss mean of the "
           f"first {k} {first:.6f}, of the last {k} {last:.6f}; launches {launches['refine']}")
     n_it = REFINE_ITERS
-    check(launches["refine"] == {"expand": n_it, "sort": n_it, "composite": n_it,
-                                 "backward": n_it},
+    check(launches["refine"] == launches_of(expand=n_it, sort=n_it, composite=n_it,
+                                            backward=n_it),
           f"one K1, sort, K2 and K3 per refine step ({n_it})")
     check(len(losses) == n_it and all(np.isfinite(losses)) and last < first,
           "every refine loss is finite and the loss falls")
@@ -2180,6 +2223,286 @@ def phase_scorp(args, device):
         "refine_syncs": syncs, "wall_s": wall, "seg_vote_err": seg_err,
         "big_render": [bw, bh, tiles, big_cfg.max_keys], "iou": inter / union,
         "precision": inter / max(int(sel.sum()), 1),
+    }
+
+
+ALIGN2D_ROUNDS = 3  # render-and-match rounds of the 2DGS alignment (the app's default: 6)
+
+
+def mesh_ply_counts(path: str) -> tuple[int, int]:
+    """(vertices, faces) from a mesh PLY's header."""
+    with open(path, "rb") as f:
+        head = f.read(4096).split(b"end_header")[0]
+    return (int(head.split(b"element vertex ")[1].split()[0]),
+            int(head.split(b"element face ")[1].split()[0]))
+
+
+def phase_scorp2d(args, device):
+    """Phase 13: the 2DGS object path and mesh extraction at full width
+    through their entry points, on phase 12's scene and masks with its
+    Gaussians as surfels (iteration 25000): segmentation_2dgs (the surfel
+    vote) -> view_selection -> trellis_img2gs --proxy_dir -> truncate_opacity
+    -> align_2dgs_clpe_9dof.align -> extract_mesh, with launch counters per
+    stage; the summed votes and camera 0's votes held against the plain
+    versions, and the card's TSDF grid against tsdf_fuse on the CPU from
+    the same depth and colour maps."""
+    import torch
+
+    from scorp_tpu_torch.apps import align_2dgs_clpe_9dof as align2d_app
+    from scorp_tpu_torch.apps import align_3dgs_clpe_9dof as align_app
+    from scorp_tpu_torch.apps import extract_mesh, segmentation_2dgs, trellis_img2gs
+    from scorp_tpu_torch.apps import truncate_opacity, view_selection
+    from scorp_tpu_torch.config import ModelParams
+    from scorp_tpu_torch.core.plyio import GaussianData, load_gaussian_ply, save_gaussian_ply
+    from scorp_tpu_torch.pipeline import marching_cubes, mesh
+    from scorp_tpu_torch.pipeline.gs_transform import (
+        gaussians_rotate, gaussians_scale, gaussians_translate,
+    )
+    from scorp_tpu_torch.pipeline.mask3d import camera_votes, load_mask_rgba
+    from scorp_tpu_torch.render import default_raster_config
+    from scorp_tpu_torch.scene import Scene
+    from scorp_tpu_torch.train import from_gaussian_data
+
+    t_phase = time.perf_counter()
+    scene_dir = os.path.join(WORK, "scorp_scene")  # phase 12's scene and RGBA masks
+    model_dir = os.path.join(WORK, "scorp2d_model")
+    g3 = load_gaussian_ply(os.path.join(WORK, "scorp_model", "point_cloud", "iteration_7000",
+                                        "point_cloud.ply"))
+    g = GaussianData(xyz=g3.xyz, f_dc=g3.f_dc, f_rest=g3.f_rest, opacity=g3.opacity,
+                     scaling=np.ascontiguousarray(g3.scaling[:, :2]), rotation=g3.rotation)
+    save_gaussian_ply(os.path.join(model_dir, "point_cloud", "iteration_25000",
+                                   "point_cloud.ply"), g)
+    cluster_idx, centers = bench_scene_draw(args.n, args.seed)[5:]
+    obj_mask = cluster_idx == int(np.argmin(np.linalg.norm(centers, axis=1)))
+    base = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml"]
+    dev_arg = ["--device", str(device)]
+    n_train = SCORP_VIEWS - 2
+    launches = {}
+
+    # 1. mask lifting through the surfel vote
+    reset_launches()
+    t0 = time.perf_counter()
+    masks = segmentation_2dgs.main(base + dev_arg)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    launches["segmentation"] = kernel_launches()
+    sel = masks[0]
+    inter = int((sel & obj_mask).sum())
+    recall, precision = inter / int(obj_mask.sum()), inter / max(int(sel.sum()), 1)
+    print(f"  segmentation_2dgs: {seg_s:.3f} s, {int(sel.sum())} selected, {inter} of them in "
+          f"the cluster of {int(obj_mask.sum())} (recall {recall:.4f}, precision "
+          f"{precision:.4f}); launches {launches['segmentation']}")
+    check(launches["segmentation"] == launches_of(
+        expand=n_train, sort=n_train, surfel_composite_train=n_train, surfel_backward=n_train),
+        f"one K1, sort, K5 and K6 per surfel vote ({n_train} cameras x 1 prompt)")
+    dataset = ModelParams(source_path=scene_dir, model_path=model_dir, eval=True,
+                          split_yml_name="split.yml").finalize()
+    scene = Scene(dataset, load_iteration=25000, shuffle=False)
+    state = from_gaussian_data(scene.gaussians, device=device)
+    check(tuple(state.params["scaling"].shape) == (state.capacity, 2),
+          f"the surfel PLY loads with 2 scale columns ({state.capacity} rows)")
+    bg = torch.zeros(3, device=device)
+    cfg = default_raster_config(state.capacity)
+    sums = {}
+    for route in ("kernels", "plain"):
+        sums[route] = torch.zeros(state.capacity, device=device)
+        with plain_kernels() if route == "plain" else contextlib.nullcontext():
+            for hc in scene.get_train_cameras():
+                m = load_mask_rgba(os.path.join(scene_dir, "masked_image_rgba", "obj",
+                                                hc.image_name + ".png"), hc.resolution)
+                sums[route] += camera_votes(state, hc.to_torch(device), m, bg, "gradient", cfg,
+                                            surfel=True)
+    n = len(sel)
+    v_k, v_p = sums["kernels"][:n], sums["plain"][:n]
+    scale = float(v_p.abs().max())
+    clear = (v_p.abs() > 1e-4 * scale).cpu().numpy()
+    clear_k = (v_k.abs() > 1e-4 * scale).cpu().numpy()
+    sel_k, sel_p = (v_k > 0).cpu().numpy(), (v_p > 0).cpu().numpy()
+    seg_err = float((v_k - v_p).abs().max())
+    check(seg_err <= 1e-4 * scale, f"summed surfel votes through the kernels against the "
+          f"plain versions: max |diff| {seg_err:.3g} <= 1e-4 x {scale:.4g}")
+    check(np.array_equal(sel_k[clear], sel_p[clear]),
+          f"the selections through the kernels and the plain versions are equal on the "
+          f"{int(clear.sum())} surfels whose summed vote is clear of 0")
+    check(np.array_equal(sel[clear_k], sel_k[clear_k]),
+          "segmentation_2dgs' selection is its summed votes > 0 wherever they are clear of 0")
+    host_cam = scene.get_train_cameras()[0]
+    cam = host_cam.to_torch(device)
+    mask = load_mask_rgba(os.path.join(scene_dir, "masked_image_rgba", "obj",
+                                       host_cam.image_name + ".png"), host_cam.resolution)
+    vote_errs = check_votes(state, cam, mask, bg, cfg, "camera 0 (surfels)", surfel=True)
+    vote_ms = cuda_ms(lambda: camera_votes(state, cam, mask, bg, "gradient", cfg, True), 5)
+    print(f"  surfel vote: {vote_ms:.3f} ms per camera (CUDA events, median of 5)")
+    del state
+    torch.cuda.empty_cache()
+
+    # 2. view selection
+    reset_launches()
+    view_selection.main(base + dev_arg)
+    crops = sorted(os.listdir(os.path.join(model_dir, "masked_image_rgba_selected", "obj")))
+    check(1 <= len(crops) <= 3 and kernel_launches() == launches_of(),
+          f"view selection wrote {len(crops)} crops and launched no kernel")
+
+    # 3. the proxy stages: the 2DGS segmentation's object as a 3DGS SH-0
+    #    proxy (its second scale repeated as the third, as TRELLIS writes
+    #    3DGS), scaled 0.6, rotated 0.5 rad about z, translated; copied by
+    #    trellis_img2gs --proxy_dir, then truncated at opacity 0.1
+    seg = load_gaussian_ply(os.path.join(model_dir, "gs_seg", "obj.ply"), max_sh_degree=3)
+    proxy = GaussianData(xyz=seg.xyz.copy(), f_dc=seg.f_dc.copy(),
+                         f_rest=np.zeros((seg.n, 0, 3), np.float32), opacity=seg.opacity.copy(),
+                         scaling=np.concatenate([seg.scaling, seg.scaling[:, 1:]], 1),
+                         rotation=seg.rotation.copy())
+    rz = np.array([[np.cos(0.5), -np.sin(0.5), 0], [np.sin(0.5), np.cos(0.5), 0], [0, 0, 1.0]])
+    gaussians_scale(proxy, 0.6)
+    gaussians_rotate(proxy, rz)
+    gaussians_translate(proxy, np.array([0.8, -0.5, 0.4]))
+    proxy_path = os.path.join(WORK, "proxies", "obj.ply")
+    save_gaussian_ply(proxy_path, proxy)
+    with open(proxy_path, "rb") as f:
+        proxy_bytes = f.read()
+    reset_launches()
+    trellis_img2gs.main(["-m", model_dir, "--proxy_dir", os.path.dirname(proxy_path)] + dev_arg)
+    gen = os.path.join(model_dir, "generated", "obj.ply")
+    with open(gen, "rb") as f:
+        check(f.read() == proxy_bytes, "trellis_img2gs --proxy_dir copied the proxy")
+    kept = truncate_opacity.main(["-m", model_dir] + dev_arg)
+    with open(gen + ".bak", "rb") as f:
+        check(f.read() == proxy_bytes, "truncate_opacity kept the proxy as generated/obj.ply.bak")
+    want = int((1.0 / (1.0 + np.exp(-proxy.opacity[:, 0])) >= 0.1).sum())
+    check(kept == {gen: want} and load_gaussian_ply(gen).n == want < proxy.n,
+          f"truncate_opacity kept the {want} of {proxy.n} proxy Gaussians at opacity >= 0.1")
+    check(kernel_launches() == launches_of(), "the proxy stages launch no kernel")
+    print(f"  proxy: {proxy.n} Gaussians, {want} kept at opacity >= 0.1, .bak written")
+
+    # 4. alignment with an empty precomputed matcher: the scene object's
+    #    depth renders through render2d (K1, K4), the proxy's through render
+    #    (K1, K2); every round keeps the coarse init
+    empty = os.path.join(WORK, "no_matches_2d")
+    os.makedirs(empty)
+    renders = {"scene": 0, "proxy": 0}
+    real_scene_render, real_render = align2d_app._scene_render_2d, align_app.render
+
+    def counting_scene_render(*a, **kw):
+        renders["scene"] += 1
+        return real_scene_render(*a, **kw)
+
+    def counting_render(*a, **kw):
+        renders["proxy"] += 1
+        return real_render(*a, **kw)
+
+    align2d_app._scene_render_2d, align_app.render = counting_scene_render, counting_render
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        align2d_app.align(dataset, None, "obj", num_iterations=ALIGN2D_ROUNDS,
+                          opt_12dof_iterations=(3, 4),
+                          rotations_path=os.path.join(WORK, "rotation_matrices"),
+                          matcher_backend="precomputed", matcher_kwargs={"directory": empty},
+                          device=device)
+    finally:
+        align2d_app._scene_render_2d, align_app.render = real_scene_render, real_render
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    launches["align"] = kernel_launches()
+    ns, npx = renders["scene"], renders["proxy"]
+    print(f"  align_2dgs: {align_s:.3f} s, {ns} scene-object renders (render2d), {npx} proxy "
+          f"renders (render); launches {launches['align']}")
+    n_seen = sum(bool(load_mask_rgba(os.path.join(scene_dir, "masked_image_rgba", "obj",
+                                                  hc.image_name + ".png")).any())
+                 for hc in scene.get_train_cameras())
+    check(ns == n_seen and npx > 0 and launches["align"] == launches_of(
+        expand=ns + npx, sort=ns + npx, surfel_composite=ns, composite=npx),
+        f"one K1, sort and K4 per scene-object render (one per train view that sees the "
+        f"object: {n_seen}), one K1, sort and K2 per proxy render")
+    aligned = load_gaussian_ply(os.path.join(model_dir, "generated_aligned", "obj.ply"))
+    c_err = float(np.linalg.norm(aligned.xyz.mean(0) - seg.xyz.mean(0)))
+    extent = float(seg.xyz.std())
+    check(c_err < 0.35 * extent, f"the coarse init brings the proxy's centroid within "
+          f"0.35 x the object's xyz std ({c_err:.4f} < 0.35 x {extent:.4f})")
+
+    # 5. mesh extraction at extract_mesh's defaults (bounded, mesh_res 256)
+    times = {"render_s": 0.0}
+    grid = {}
+    real_fuse, real_mc = mesh.tsdf_fuse, marching_cubes.marching_cubes
+    real_post = extract_mesh.post_process_mesh
+
+    def checked_fuse(render_fn, cameras, *a, **kw):
+        maps = {}
+
+        def recording(cam):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pkg = render_fn(cam)
+            torch.cuda.synchronize()
+            times["render_s"] += time.perf_counter() - t
+            maps[cam.image_name] = {"render_depth": pkg["render_depth"], "render": pkg["render"]}
+            return pkg
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_fuse(recording, cameras, *a, **kw)
+        times["fuse_s"] = time.perf_counter() - t
+        # the same fusion on the CPU from the card's depth and colour maps
+        t = time.perf_counter()
+        ref = real_fuse(lambda cam: {k: v.cpu() for k, v in maps[cam.image_name].items()},
+                        cameras, *a, **{**kw, "device": "cpu"})
+        times["fuse_cpu_s"] = time.perf_counter() - t
+        grid.update(res=out[0].shape[0], observed=float((out[1] > 0).mean()),
+                    weights_equal=bool(np.array_equal(out[1], ref[1])),
+                    tsdf_err=float(np.abs(out[0] - ref[0]).max()),
+                    color_err=float(np.abs(out[2] - ref[2]).max()))
+        return out
+
+    def timed_stage(fn, key):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            times[key] = time.perf_counter() - t
+            return out
+        return wrapped
+
+    mesh.tsdf_fuse = checked_fuse
+    marching_cubes.marching_cubes = timed_stage(real_mc, "marching_cubes_s")
+    extract_mesh.post_process_mesh = timed_stage(real_post, "post_process_s")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out_dir = extract_mesh.main(base + dev_arg)
+    finally:
+        mesh.tsdf_fuse, marching_cubes.marching_cubes = real_fuse, real_mc
+        extract_mesh.post_process_mesh = real_post
+    mesh_s = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches["mesh"] = kernel_launches()
+    check(launches["mesh"] == launches_of(expand=n_train, sort=n_train,
+                                          surfel_composite=n_train),
+          f"one K1, sort and K4 per training view ({n_train})")
+    check(grid["res"] == 256, f"a 256^3 grid ({grid['res'] ** 3} voxels)")
+    check(grid["weights_equal"], "the card's TSDF weights equal the CPU fusion's")
+    check(grid["tsdf_err"] <= 1e-5 and grid["color_err"] <= 1e-5,
+          f"the card's tsdf and colours within 1e-5 of the CPU fusion's (max |diff| "
+          f"{grid['tsdf_err']:.3g}, {grid['color_err']:.3g})")
+    counts = {}
+    for name in ("fuse.ply", "fuse_post.ply"):
+        counts[name] = mesh_ply_counts(os.path.join(out_dir, name))
+        check(min(counts[name]) > 0, f"{name}: {counts[name][0]} vertices, "
+              f"{counts[name][1]} faces")
+    print(f"  extract_mesh: {mesh_s:.3f} s; fusion {times['fuse_s']:.3f} s (of which "
+          f"{n_train} render2d {times['render_s']:.3f} s), marching cubes "
+          f"{times['marching_cubes_s']:.3f} s, post-processing {times['post_process_s']:.3f} "
+          f"s; CPU fusion {times['fuse_cpu_s']:.3f} s; peak device memory {peak_mib:.1f} MiB; "
+          f"observed voxels {grid['observed']:.4f}; launches {launches['mesh']}")
+    wall = time.perf_counter() - t_phase
+    print(f"  phase wall {wall:.2f} s")
+    keys = ("expand", "sort", "composite", "surfel_composite", "surfel_composite_train",
+            "surfel_backward")
+    scorp2d = {k: launches["segmentation"][k] + launches["align"][k] for k in keys}
+    return scorp2d, launches["mesh"], {
+        "launches_by_stage": launches, "vote_ms": vote_ms, "vote_err": vote_errs,
+        "seg_vote_err": seg_err, "selected": int(sel.sum()), "recall": recall,
+        "precision": precision, "align_s": align_s, "renders": renders, "mesh_s": mesh_s,
+        **times, "grid": grid, "peak_mib": peak_mib, "mesh_counts": counts, "wall_s": wall,
     }
 
 
@@ -2300,6 +2623,13 @@ def main(argv=None) -> int:
           "post_refine_gs, render_3dgs")
     scorp_launches, scorp = phase_scorp(args, device)
     print(f"  SCORP: {json.dumps(scorp)}")
+    torch.cuda.empty_cache()
+
+    print(f"[13] 2DGS object path and mesh at full width: {args.n} surfels, {SCORP_VIEWS} views "
+          f"at {args.width}x{args.height}: segmentation_2dgs, view_selection, trellis_img2gs, "
+          "truncate_opacity, align_2dgs, extract_mesh")
+    scorp2d_launches, mesh_launches, scorp2d = phase_scorp2d(args, device)
+    print(f"  SCORP 2DGS: {json.dumps(scorp2d)}")
     shutil.rmtree(WORK, ignore_errors=True)
 
     def timed(d):
@@ -2319,14 +2649,16 @@ def main(argv=None) -> int:
          "sort_int64_torch_ms": full["k1"]["sort_int64_torch_ms"],
          "bound_ms_int64_keys": full["k1"]["bound_ms_int64_keys"],
          "kept": full["k1"]["kept"], "kept_golden": full["k1"]["golden"],
-         "launches_scorp": scorp_launches["expand"]},
+         "launches_scorp": scorp_launches["expand"],
+         "launches_scorp2d": scorp2d_launches["expand"], "launches_mesh": mesh_launches["expand"]},
         {"name": "K2 composite", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train_launches["composite"],
          "launches_eval": launches["composite"],
          "max_abs_err": k2_err, "max_abs_diff": k2_err, **timed(full["k2"]),
          "ms_train": step["k2_train_ms"], "library_ms": None,
          "slots": full["k2"]["slots"], "slots_train": step["k2_slots"],
-         "launches_scorp": scorp_launches["composite"]},
+         "launches_scorp": scorp_launches["composite"],
+         "launches_scorp2d": scorp2d_launches["composite"]},
         {"name": "K3 composite_backward", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train_launches["backward"],
          "max_abs_err": k3_err, **timed(step["k3"]),
@@ -2335,16 +2667,20 @@ def main(argv=None) -> int:
         {"name": "K4 surfel_composite", "route": "cuda", "source": SK_SOURCE,
          "replaces": K4_REPLACES, "launches": launches2d["surfel_composite"],
          "launches_2dgs_train_evals": train2d_launches["surfel_composite"],
-         "max_abs_err": eval2d["k4"]["err"], **timed(eval2d["k4"]), "library_ms": None},
+         "max_abs_err": eval2d["k4"]["err"], **timed(eval2d["k4"]), "library_ms": None,
+         "launches_scorp2d": scorp2d_launches["surfel_composite"],
+         "launches_mesh": mesh_launches["surfel_composite"]},
         {"name": "K5 surfel_composite_train", "route": "cuda", "source": SK_SOURCE,
          "replaces": K5_REPLACES, "launches": train2d_launches["surfel_composite_train"],
          "max_abs_err": k5_err, **timed(step2d["k5"]), "library_ms": None,
-         "slots": step2d["slots"]["K5"]},
+         "slots": step2d["slots"]["K5"],
+         "launches_scorp2d": scorp2d_launches["surfel_composite_train"]},
         {"name": "K6 surfel_backward", "route": "cuda", "source": K6_SOURCE,
          "replaces": K6_REPLACES, "launches": train2d_launches["surfel_backward"],
          "max_abs_err": k6_err[0], "max_rel_err_per_column": k6_err[1],
          **timed(step2d["k6"]), "library_ms": None,
-         "slots": step2d["slots"]["K6"]},
+         "slots": step2d["slots"]["K6"],
+         "launches_scorp2d": scorp2d_launches["surfel_backward"]},
     ]
     print(f"  training app: loss {train['loss_first']:.6f} -> {train['loss_last']:.6f}, "
           f"{train['wall_s']:.2f} s; train_step {step['step_ms']:.3f} ms")

@@ -15,11 +15,14 @@ Ported so far:
   ops/       losses, KNN
   train/     the padded Gaussian store, Adam, the 3DGS and 2DGS training
              steps, densification, the SCORP refinement step
-  pipeline/  SCORP: mask lifting, view scoring, ICP, pose solvers, matchers
+  pipeline/  SCORP: mask lifting (3DGS and surfel votes), view scoring, ICP,
+             pose solvers, matchers; TSDF fusion and marching cubes
   render.py, render2d.py, assets.py
   apps/      render_3dgs, train_3dgs, render_2dgs, train_2dgs,
-             segmentation_3dgs, view_selection, align_3dgs_clpe_9dof,
-             post_refine_gs
+             segmentation_3dgs, segmentation_2dgs, view_selection,
+             trellis_img2gs (precomputed proxies), truncate_opacity,
+             align_3dgs_clpe_9dof, align_2dgs_clpe_9dof, post_refine_gs,
+             extract_mesh
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 GPU they raise rather than fall back to the CPU.

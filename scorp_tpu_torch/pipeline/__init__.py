@@ -1,2 +1,2 @@
 """SCORP object-refinement stages: mask lifting, view selection, 9-DoF proxy
-alignment (torch port of `scorp_tpu.pipeline`)."""
+alignment, and mesh extraction (torch port of `scorp_tpu.pipeline`)."""

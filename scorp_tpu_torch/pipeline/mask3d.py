@@ -12,7 +12,9 @@ One render VJP per (camera, prompt) with the signed mask as cotangent gives
 the same votes (same sign, positive scale). Here that VJP is the port's
 differentiable `rasterize` on the state's device: key expansion (K1), the
 forward compositor (K2) and the backward compositor (K3), whose d_table
-carries the colour columns back to `colors_precomp`. The segmentation is
+carries the colour columns back to `colors_precomp`. A 2DGS state
+(`surfel=True`, scaling [N, 2]) votes through `rasterize_surfel`: K1 with
+its second ellipse, the surfel training compositor K5 and its reverse K6. The segmentation is
 votes > 0. "binary" thresholds each camera's masked and inverse-masked
 votes; "projection" votes by the projected centre's pixel.
 """
@@ -28,7 +30,7 @@ import torch
 from PIL import Image
 
 from ..core.camera import Camera
-from ..ops.raster import RasterConfig, preprocess, rasterize
+from ..ops.raster import RasterConfig, preprocess, rasterize, rasterize_surfel
 from ..render import default_raster_config
 from ..train.state import GaussianState
 
@@ -43,14 +45,11 @@ def vote_step(state: GaussianState, cam: Camera, signed_mask: torch.Tensor,
     """One camera's signed gradient votes [N]: the gradient of the mean over
     H·W·3 of render·signed_mask with respect to all-ones override colours,
     column 0 times √3 (the reference's norm scaling)."""
-    if surfel:
-        raise NotImplementedError(
-            "the 2DGS surfel vote (rasterize_surfel) is not ported to scorp_tpu_torch "
-            "yet: ROADMAP.md, queue 1, segmentation_2dgs")
     p = state.params
+    raster_fn = rasterize_surfel if surfel else rasterize
     ones = torch.ones((state.capacity, 3), device=cam.device, requires_grad=True)
     with torch.enable_grad():
-        out = rasterize(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam, bg,
+        out = raster_fn(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam, bg,
                         colors_precomp=ones, cfg=cfg, **_gaussian_args(state))
         loss = (out.color * signed_mask[None, :, :]).mean()
         (grad,) = torch.autograd.grad(loss, ones)
@@ -62,9 +61,15 @@ def projection_vote_step(state: GaussianState, cam: Camera, mask: torch.Tensor) 
     even) falls inside / outside the mask, 0 off the image."""
     p = state.params
     ones = torch.ones((state.capacity, 3), device=cam.device)
+    args = _gaussian_args(state)
+    if args["scales"].shape[1] == 2:
+        # a surfel state through the 3DGS preprocess, as in the JAX package,
+        # whose out-of-range scale column reads the last one (only the
+        # projected centres are used)
+        args["scales"] = torch.cat([args["scales"], args["scales"][:, 1:]], dim=1)
     with torch.no_grad():
         prep = preprocess(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
-                          colors_precomp=ones, **_gaussian_args(state))
+                          colors_precomp=ones, **args)
         # f32 -> int32 as XLA converts: NaN to 0, saturating
         xy = torch.nan_to_num(torch.round(prep.xy), nan=0.0)
         xy = torch.clamp(xy, -2.0 ** 31, 2.0 ** 31 - 128).to(torch.int64)

@@ -32,9 +32,14 @@ from scorp_tpu.train import from_gaussian_data as jfrom_gd
 from scorp_tpu.train import refine as jrefine
 from scorp_tpu.train import state as jstate
 from scorp_tpu.train import step as jstep
+from scorp_tpu_torch.apps import align_2dgs_clpe_9dof as talign2d
 from scorp_tpu_torch.apps import align_3dgs_clpe_9dof as talign
+from scorp_tpu_torch.apps import extract_mesh as textract
 from scorp_tpu_torch.apps import post_refine_gs as trefine_app
+from scorp_tpu_torch.apps import segmentation_2dgs as tseg2d
 from scorp_tpu_torch.apps import segmentation_3dgs as tseg
+from scorp_tpu_torch.apps import trellis_img2gs as ttrellis
+from scorp_tpu_torch.apps import truncate_opacity as ttrunc
 from scorp_tpu_torch.apps import view_selection as tview
 from scorp_tpu_torch.core import plyio as tply
 from scorp_tpu_torch.pipeline import mask3d as tmask
@@ -211,12 +216,28 @@ def test_room_scene_selection_matches_jax():
     assert (jsel & (n_in >= 4)).sum() >= 0.5 * jsel.sum()
 
 
-def test_surfel_vote_is_not_ported(scene):
-    _, ts = _states(scene)
-    cam = scene.tscene.get_train_cameras()[0].to_torch("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmask.vote_step(ts, cam, torch.ones(SIZE, SIZE), torch.zeros(3),
-                        cfg=tcfg(ts.capacity), surfel=True)
+def test_surfel_vote_step_matches_jax(scene):
+    """`vote_step(surfel=True)` (the scene's Gaussians as surfels, through
+    the port's `rasterize_surfel`) within 2e-5 · max(|v|, 1) of the JAX
+    package's `_vote_step(surfel=True)` on every camera; the all-ones
+    override colours have `state.capacity` rows."""
+    g = to_port(scene.g)
+    g.scaling = np.ascontiguousarray(g.scaling[:, :2])
+    ts = tstate.from_gaussian_data(g, device="cpu")
+    js = jfrom_gd(GaussianData(**{k: getattr(g, k) for k in KEYS}))
+    assert ts.capacity == js.capacity > g.n
+    for jcam, tcam in zip(scene.jscene.get_train_cameras(), scene.tscene.get_train_cameras()):
+        mask = jmask.load_mask_rgba(os.path.join(scene.root, "masked_image_rgba", "cup",
+                                                 f"{jcam.image_name}.png"), jcam.resolution)
+        signed = np.where(mask, 1.0, -1.0).astype(np.float32)
+        ref = np.asarray(jmask._vote_step(js.params, js.alive, jcam.to_jax(),
+                                          jnp.asarray(signed), jnp.zeros(3),
+                                          cfg=jcfg(js.capacity), surfel=True))
+        got = tmask.vote_step(ts, tcam.to_torch("cpu"), torch.as_tensor(signed),
+                              torch.zeros(3), cfg=tcfg(ts.capacity), surfel=True).numpy()
+        assert got.shape == (ts.capacity,)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5 * max(np.abs(ref).max(), 1.0),
+                                   err_msg=jcam.image_name)
 
 
 # --- view selection ----------------------------------------------------------------
@@ -445,9 +466,12 @@ def test_post_refine_matches_jax_app(scene, aligned_inputs):
 
 # --- the apps' device rule -------------------------------------------------------------
 
-@pytest.mark.parametrize("app", [tseg, tview, talign, trefine_app])
+@pytest.mark.parametrize("app", [tseg, tview, talign, trefine_app, tseg2d, talign2d,
+                                 textract, ttrellis, ttrunc])
 def test_apps_raise_without_gpu(scene, app, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = ["-s", scene.root, "-m", os.path.join(scene.root, "model_nogpu")]
+    argv = ["-m", os.path.join(scene.root, "model_nogpu")]
+    if app not in (ttrellis, ttrunc):  # the two proxy stages take no scene
+        argv = ["-s", scene.root, *argv]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         app.main(argv)
