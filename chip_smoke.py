@@ -146,6 +146,29 @@ Phases, in order (any failure exits non-zero):
      and colours within 1e-5; fuse.ply and fuse_post.ply non-empty; the
      seconds of fusion, marching cubes and post-processing and the peak
      device memory printed).
+  14. full width, the scale-out and what consumes renders (`phase_dp`), on
+     phase 12's scene: `parallel.dp_train_step` for DP_STEPS steps of
+     DP_BATCH train cameras in a one-rank NCCL group (one K1, sort, K2 and K3
+     per camera), its first step against the same step with no group
+     (parameters, Adam moments, the three statistics: per column within 1e-4
+     x the column's largest), its gradient against the mean of the
+     single-camera steps' and its statistics against their sum (max for the
+     radii), and camera 0's gradient through the kernels against the plain
+     versions; the same for `dp_train_step_2d` with the scene as surfels (K1,
+     K5, K6); the DP step's time, device busy time, idle share and peak
+     memory beside DP_BATCH x one train_step; `dp_render` of the 2 test views
+     bit-equal to `render()`'s; an ORBIT_FRAMES-frame `generate_ellipse_path`
+     rendered by `render` and `render2d` and saved by `save_img_u8` (finite,
+     mean alpha above 0); `apps.metrics.evaluate_dirs` (use_alpha) over phase 2's renders
+     on the card against the CPU (PSNR, SSIM 1e-5, lpips_proxy 1e-4
+     relative) and LPIPS with random weights of the true shapes on a 256x256
+     crop (1e-4 relative), with each metric's ms per full-width image; one
+     `gui_tick` round trip from a client thread on 127.0.0.1 whose frame
+     equals encode_image(render()) of the same MiniCam; and
+     `apps.segmentation_2d --mask_dir` on a copy of the scene with cv2
+     blocked, each alpha equal to the 5x5-ellipse open-then-close of its
+     mask. The multi-rank all-reduce needs several cards; the CPU tests hold
+     it on gloo ranks (`tests/test_torch_parallel.py`).
 The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
@@ -153,7 +176,9 @@ of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
 phase 10; K1-K3 also with their launches in phase 12 (`launches_scorp`),
 K1, K2 and K4-K6 with theirs in phase 13's object stages
 (`launches_scorp2d`), K1 and K4 with theirs in its mesh extraction
-(`launches_mesh`).
+(`launches_mesh`), and every kernel with its launches on phase 14's main
+path (`launches_dp`) and, apart, in that phase's checks
+(`launches_dp_checks`).
 K1's entry also holds its key width, the key sort's device time
 per call (`sort_ms`; `sort_int64_torch_ms` for torch.sort of the keys as
 int64, the earlier route), torch.sort's on the same keys as `library_ms`,
@@ -2506,6 +2531,521 @@ def phase_scorp2d(args, device):
     }
 
 
+DP_BATCH = 4      # cameras per data-parallel step in phase 14
+DP_STEPS = 3      # data-parallel steps of each kind in phase 14
+ORBIT_FRAMES = 8  # frames of phase 14's ellipse path
+METRICS = os.path.join(ROOT, "build", "smoke_metrics")  # phase 2's renders + GT, for phase 14
+
+
+def keep_for_metrics(scene_dir: str, model_dir: str) -> None:
+    """Copy phase 2's render_3dgs outputs and their ground truth to METRICS
+    (pred/, gt/): phase 14 evaluates them after WORK is cleared."""
+    shutil.rmtree(METRICS, ignore_errors=True)
+    for sub in ("pred", "gt"):
+        os.makedirs(os.path.join(METRICS, sub))
+    out_dir = os.path.join(model_dir, "rendered_refined")
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".png"):
+            shutil.copy(os.path.join(out_dir, name), os.path.join(METRICS, "pred", name))
+            shutil.copy(os.path.join(scene_dir, "images", name), os.path.join(METRICS, "gt", name))
+
+
+def check_columns(got: dict, ref: dict, label: str) -> float:
+    """The K3 atomics rule of phases 4/7 on each tensor of a dict: finite,
+    and per column (the trailing dimensions flattened) max |diff| <= 1e-4 x
+    the column's largest |ref|. Returns the worst ratio of the two."""
+    import torch
+
+    worst = 0.0
+    for k in ref:
+        a = got[k].reshape(got[k].shape[0], -1).to(torch.float64)
+        b = ref[k].reshape(ref[k].shape[0], -1).to(torch.float64)
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            raise AssertionError(f"{label} {k}: not finite")
+        diff = (a - b).abs().amax(dim=0)
+        scale = b.abs().amax(dim=0)
+        if not bool((diff <= 1e-4 * scale).all()):
+            raise AssertionError(f"{label} {k}: per column max |diff| above 1e-4 x max |ref| "
+                                 f"(worst {float((diff / scale.clamp_min(1e-30)).max()):.3g})")
+        worst = max(worst, float((diff / scale.clamp_min(1e-30)).max()))
+    print(f"  ok: {label}: {sorted(ref)} per column within 1e-4 x the column's largest "
+          f"(worst {worst:.3g})")
+    return worst
+
+
+def seeded_adam(state, seed: int):
+    """Adam state at step 6 with zero first moments and second moments from
+    `seed` (U(1e-7, 1e-5), the CPU tests' range): a step's parameter update
+    is then smooth in the gradient (no lr x sign(g) from zero moments, whose
+    sign the atomics' run-to-run noise could flip), and the gradient comes
+    back exactly as m' / 0.1."""
+    import torch
+
+    from scorp_tpu_torch.train import AdamState
+
+    gen = torch.Generator(device=state.alive.device).manual_seed(seed)
+    return AdamState({k: torch.zeros_like(v) for k, v in state.params.items()},
+                     {k: 1e-7 + torch.rand(v.shape, generator=gen, device=v.device) * 9.9e-6
+                      for k, v in state.params.items()}, 6)
+
+
+def recovered_grads(adam1) -> dict:
+    """The gradient of one Adam step from zero first moments: m' = 0.1 g."""
+    return {k: adam1.m[k].double() / 0.1 for k in adam1.m}
+
+
+def ellipse_open_close(mask: np.ndarray) -> np.ndarray:
+    """cv2.morphologyEx MORPH_OPEN then MORPH_CLOSE with
+    getStructuringElement(MORPH_ELLIPSE, (5, 5)) (rows 0 and 4 hold only the
+    centre, rows 1-3 all five), by shifted ANDs and ORs: erosion reads 1
+    outside the image, dilation 0, as cv2's default borders do."""
+    offsets = [(dy, dx) for dy in range(-2, 3) for dx in range(-2, 3) if abs(dy) < 2 or dx == 0]
+    h, w = mask.shape
+
+    def morph(m, erode):
+        p = np.pad(m, 2, constant_values=erode)
+        views = [p[2 + dy:2 + dy + h, 2 + dx:2 + dx + w] for dy, dx in offsets]
+        return np.logical_and.reduce(views) if erode else np.logical_or.reduce(views)
+
+    m = morph(morph(mask, True), False)
+    return morph(morph(m, False), True)
+
+
+def dp_phase_step(kind, state, adam, batch, gts, it, bg, group, **kw):
+    """One dp_train_step (kind "3dgs") or dp_train_step_2d ("2dgs"); raises
+    on a non-finite loss."""
+    import torch
+
+    from scorp_tpu_torch.parallel import dp_train_step, dp_train_step_2d
+
+    step = dp_train_step_2d if kind == "2dgs" else dp_train_step
+    s, a, m = step(state, adam, batch, gts, it, bg, group=group, **kw)
+    if not bool(torch.isfinite(m["loss"])):
+        raise AssertionError(f"{kind} dp step at iteration {it}: loss {float(m['loss'])}")
+    return s, a, m
+
+
+def phase_dp_step(kind, args, device, state, cams, gts, bg, first_it, launches, checks):
+    """Phase 14, steps 1-2: DP_STEPS data-parallel steps of DP_BATCH cameras
+    in a one-rank NCCL group (the main path, counted), then the checks:
+    step 1 against the same step with no group, against the mean (and the
+    statistics against the sum, max) of the single-camera steps, and camera
+    0's step against the plain versions of its kernels; times beside
+    DP_BATCH x one train_step."""
+    import torch
+
+    from scorp_tpu_torch.parallel import make_group, replicate, shard_batch, stack_cameras
+    from scorp_tpu_torch.render import default_raster_config
+    from scorp_tpu_torch.train import Opt2DParams, OptParams, train_step, train_step_2d
+
+    surfel = kind == "2dgs"
+    opt = Opt2DParams(lambda_dist=100.0) if surfel else OptParams()
+    cfg = default_raster_config(state.capacity)
+    kw = dict(opt=opt, sh_degree=3, cfg=cfg, width=args.width, height=args.height)
+    batch = stack_cameras(cams)
+    adam0 = seeded_adam(state, args.seed)
+    w, h = args.width, args.height
+
+    # the main path: DP_STEPS steps, each on the group, counted
+    with make_group(1, 0, device=device, timeout=120) as group:
+        s, a = replicate(state, group), replicate(adam0, group)
+        b_local, g_local = shard_batch(batch, group), shard_batch(gts, group)
+        first, losses = None, []
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for i in range(DP_STEPS):
+            s, a, m = dp_phase_step(kind, s, a, b_local, g_local, first_it + i, bg, group, **kw)
+            first = first or (s, a)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches[kind] = kernel_launches()
+    print(f"  {kind}: {DP_STEPS} dp steps from iteration {first_it}, losses "
+          f"{[round(float(x), 6) for x in losses]}")
+    n = DP_BATCH * DP_STEPS
+    want = (launches_of(expand=n, sort=n, surfel_composite_train=n, surfel_backward=n)
+            if surfel else launches_of(expand=n, sort=n, composite=n, backward=n))
+    check(launches[kind] == want, f"{kind}: one K1, sort and {'K5, K6' if surfel else 'K2, K3'} "
+          f"per camera of each step ({n}): {launches[kind]}")
+    check(all(bool(torch.isfinite(v).all()) for v in s.params.values()),
+          f"{kind}: parameters finite after {DP_STEPS} steps")
+
+    reset_launches()
+    # step 1 with no group
+    s0, a0, _ = dp_phase_step(kind, state, adam0, batch, gts, first_it, bg, None, **kw)
+    stats = ("max_radii2d", "xyz_grad_accum", "denom")
+    check_columns({**first[0].params, **{k: getattr(first[0], k)[:, None] for k in stats},
+                   **{"m." + k: v for k, v in first[1].m.items()},
+                   **{"v." + k: v for k, v in first[1].v.items()}},
+                  {**s0.params, **{k: getattr(s0, k)[:, None] for k in stats},
+                   **{"m." + k: v for k, v in a0.m.items()},
+                   **{"v." + k: v for k, v in a0.v.items()}},
+                  f"{kind} step 1 on the group vs no group")
+    check(bool(torch.equal(first[0].denom, s0.denom)), f"{kind}: denom equal with and "
+          "without the group")
+    grad_dp = recovered_grads(a0)
+    # the single-camera steps
+    singles = [dp_phase_step(kind, state, adam0, stack_cameras([c]), gts[i:i + 1], first_it,
+                             bg, None, **kw) for i, c in enumerate(cams)]
+    mean = {k: sum(recovered_grads(x[1])[k] for x in singles) / DP_BATCH
+            for k in grad_dp}
+    err_mean = check_columns(grad_dp, mean, f"{kind} batch gradient vs the mean of the "
+                             f"{DP_BATCH} single-camera gradients")
+    acc = sum(x[0].xyz_grad_accum - state.xyz_grad_accum for x in singles)
+    check_columns({"xyz_grad_accum": (s0.xyz_grad_accum - state.xyz_grad_accum)[:, None]},
+                  {"xyz_grad_accum": acc[:, None]}, f"{kind} screen-gradient sums vs the "
+                  "single-camera sums")
+    check(bool(torch.equal(s0.denom - state.denom,
+                           sum(x[0].denom - state.denom for x in singles))),
+          f"{kind}: denom increments equal the single-camera sum")
+    check(bool(torch.equal(s0.max_radii2d, torch.stack([x[0].max_radii2d
+                                                        for x in singles]).amax(0))),
+          f"{kind}: max_radii2d equals the single-camera maximum")
+    # camera 0 through the plain versions of its kernels
+    with plain_kernels():
+        plain = dp_phase_step(kind, state, adam0, stack_cameras(cams[:1]), gts[:1], first_it,
+                              bg, None, **kw)
+    err_plain = check_columns(recovered_grads(singles[0][1]),
+                              recovered_grads(plain[1]),
+                              f"{kind} camera 0's gradient vs the plain versions of "
+                              f"K1, {'K5, K6' if surfel else 'K2, K3'}")
+
+    # times: the DP step beside DP_BATCH x one train_step of camera 0
+    def dp_step():
+        return dp_phase_step(kind, state, adam0, batch, gts, first_it, bg, None, **kw)
+
+    one_step = train_step_2d if surfel else train_step
+    zeros = torch.zeros(1, h, w, device=device)
+
+    def single():
+        return one_step(state, adam0, cams[0], gts[0], zeros, zeros, first_it, bg, opt=opt,
+                        sh_degree=3, cfg=cfg)
+
+    dp_ms = cuda_ms(dp_step, 3)
+    single_ms = cuda_ms(single, 5)
+    busy, top = device_profile(dp_step, 2)
+    torch.cuda.reset_peak_memory_stats()
+    dp_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    checks.append(kernel_launches())
+    print(f"  {kind} dp step (B={DP_BATCH}): {dp_ms:.3f} ms (CUDA-event median of 3), device "
+          f"busy {busy:.3f} ms (CUPTI, 2 steps) -> idle share {1 - busy / dp_ms:.3f}; peak "
+          f"{peak / 2**20:.1f} MiB; {DP_BATCH} x train_step{'_2d' if surfel else ''} "
+          f"{DP_BATCH * single_ms:.3f} ms ({single_ms:.3f} each); {DP_STEPS} steps "
+          f"{run_s:.3f} s")
+    for name, ms in top[:4]:
+        print(f"    {ms:8.3f} ms  {name}")
+    return {"dp_ms": dp_ms, "busy_ms": busy, "idle": 1 - busy / dp_ms, "peak_mib": peak / 2**20,
+            "train_step_ms": single_ms, "err_mean": err_mean, "err_plain": err_plain,
+            "steps_s": run_s}
+
+
+def viewer_round_trip(state, host_cam, cfg, bg, device, launches):
+    """Phase 14, step 6: a client thread asks gui_tick for one full-width
+    frame of `host_cam`; the served bytes equal encode_image of render() of
+    the same MiniCam. Returns the round trip in ms."""
+    import socket
+    import threading
+
+    import torch
+
+    from scorp_tpu_torch.core.camera import projection_matrix
+    from scorp_tpu_torch.render import render
+    from scorp_tpu_torch.scene import MiniCam
+    from scorp_tpu_torch.viewer import NetworkGUI, gui_tick, maybe_create_gui
+
+    w, h = host_cam.resolution
+    wvt = host_cam.world_view_transform.astype(np.float32)
+    fpt = (host_cam.world_view_transform @ projection_matrix(
+        host_cam.znear, host_cam.zfar, host_cam.fovx, host_cam.fovy).T).astype(np.float32)
+    sent_v, sent_p = wvt.copy(), fpt.copy()
+    sent_v[:, 1:3] *= -1  # the viewer's convention: receive() flips them back
+    sent_p[:, 1] *= -1
+    payload = {"resolution_x": w, "resolution_y": h, "train": 1, "fov_y": host_cam.fovy,
+               "fov_x": host_cam.fovx, "z_near": host_cam.znear, "z_far": host_cam.zfar,
+               "shs_python": 0, "rot_scale_python": 0, "keep_alive": 1,
+               "scaling_modifier": 1.0,
+               "view_matrix": [float(x) for x in sent_v.reshape(-1)],
+               "view_projection_matrix": [float(x) for x in sent_p.reshape(-1)]}
+    gui = maybe_create_gui("127.0.0.1", 0)
+    check(gui is not None, "the viewer socket is bound")
+    port = gui.listener.getsockname()[1]
+    got = {}
+    expected = w * h * 3 + 4 + len("smoke")
+
+    def client():
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+            msg = json.dumps(payload).encode()
+            t0 = time.perf_counter()
+            sock.sendall(len(msg).to_bytes(4, "little") + msg)
+            buf = bytearray()
+            while len(buf) < expected:
+                chunk = sock.recv(1 << 20)
+                if not chunk:
+                    break
+                buf += chunk
+            got["ms"] = 1e3 * (time.perf_counter() - t0)
+            got["buf"] = bytes(buf)
+
+    def render_fn(minicam, smod):
+        got["cam"] = minicam
+        out = render(minicam.to_torch(device), state, bg, scaling_modifier=float(smod), cfg=cfg)
+        return out["render"].cpu().numpy()
+
+    thread = threading.Thread(target=client, daemon=True)
+    try:
+        reset_launches()
+        thread.start()
+        deadline = time.time() + 60
+        while "cam" not in got and time.time() < deadline:
+            gui_tick(gui, render_fn, "smoke", iteration=1, max_iterations=10)
+            time.sleep(0.005)
+        thread.join(timeout=60)
+        launches["viewer"] = kernel_launches()
+    finally:
+        gui.close()
+    check(not thread.is_alive() and len(got.get("buf", b"")) == expected,
+          f"the viewer client got {len(got.get('buf', b''))} of {expected} bytes")
+    check(launches["viewer"] == launches_of(expand=1, sort=1, composite=1),
+          "one K1, sort and K2 for the viewer's frame")
+    ref_cam = MiniCam(w, h, host_cam.fovy, host_cam.fovx, host_cam.znear, host_cam.zfar,
+                      wvt, fpt)
+    check(np.array_equal(got["cam"].world_view_transform, wvt)
+          and np.array_equal(got["cam"].full_proj_transform, fpt),
+          "the received MiniCam's matrices equal the sent camera's (Y/Z flips undone)")
+    with torch.no_grad():
+        frame = render(ref_cam.to_torch(device), state, bg, cfg=cfg)["render"].cpu().numpy()
+    check(got["buf"] == NetworkGUI.encode_image(frame) + (5).to_bytes(4, "little") + b"smoke",
+          f"the served {w}x{h} frame equals encode_image(render()) of the same MiniCam, "
+          "then the verify string")
+    return got["ms"]
+
+
+@contextlib.contextmanager
+def proxy_lpips_only():
+    """Inside the block the metrics app finds no LPIPS weights outside the
+    checkout ($SCORP_LPIPS_WEIGHTS, ~/.cache) and no `lpips` package, so it
+    takes the bundled proxy and reads or fetches nothing else."""
+    from scorp_tpu_torch.ops import perceptual
+
+    saved = perceptual.default_lpips_weights_path, sys.modules.get("lpips", "absent")
+    perceptual.default_lpips_weights_path = lambda: None
+    sys.modules["lpips"] = None
+    try:
+        yield
+    finally:
+        perceptual.default_lpips_weights_path = saved[0]
+        if saved[1] == "absent":
+            del sys.modules["lpips"]
+        else:
+            sys.modules["lpips"] = saved[1]
+
+
+def phase_dp(args, device):
+    """Phase 14: the camera-batch data-parallel steps (3DGS and 2DGS) in a
+    one-rank NCCL group, dp_render, the ellipse path rendered both ways,
+    the metrics app on the card, the viewer's round trip and segmentation_2d
+    without cv2, on phase 12's 10-view scene at full width."""
+    import torch
+    from PIL import Image
+
+    from scorp_tpu_torch.apps import metrics, segmentation_2d
+    from scorp_tpu_torch.config import ModelParams
+    from scorp_tpu_torch.core.plyio import GaussianData, load_gaussian_ply
+    from scorp_tpu_torch.ops import perceptual
+    from scorp_tpu_torch.ops.losses import psnr, ssim
+    from scorp_tpu_torch.parallel import dp_render, stack_cameras
+    from scorp_tpu_torch.pipeline.render_paths import generate_ellipse_path, save_img_u8
+    from scorp_tpu_torch.render import default_raster_config, render
+    from scorp_tpu_torch.render2d import render2d
+    from scorp_tpu_torch.scene import Scene
+    from scorp_tpu_torch.train import from_gaussian_data
+
+    t_phase = time.perf_counter()
+    scene_dir = os.path.join(WORK, "scorp_scene")
+    g3 = load_gaussian_ply(os.path.join(WORK, "scorp_model", "point_cloud", "iteration_7000",
+                                        "point_cloud.ply"))
+    g2 = GaussianData(xyz=g3.xyz, f_dc=g3.f_dc, f_rest=g3.f_rest, opacity=g3.opacity,
+                      scaling=np.ascontiguousarray(g3.scaling[:, :2]), rotation=g3.rotation)
+    state3, state2 = (from_gaussian_data(g, device=device) for g in (g3, g2))
+    cfg = default_raster_config(state3.capacity)
+    dataset = ModelParams(source_path=scene_dir, model_path=os.path.join(WORK, "dp_model"),
+                          eval=True, split_yml_name="split.yml").finalize()
+    scene = Scene(dataset, shuffle=False, load_gaussians=False)
+    train, test = scene.get_train_cameras(), scene.get_test_cameras()
+    cams = [c.to_torch(device) for c in train[:DP_BATCH]]
+    gts = torch.stack([torch.as_tensor(c.gt().image, device=device) for c in train[:DP_BATCH]])
+    bg = torch.zeros(3, device=device)
+    launches, checks, out = {}, [], {}
+
+    # 1-2. the data-parallel training steps
+    out["3dgs"] = phase_dp_step("3dgs", args, device, state3, cams, gts, bg, 7001, launches,
+                                checks)
+    out["2dgs"] = phase_dp_step("2dgs", args, device, state2, cams, gts, bg, 8000, launches,
+                                checks)
+    torch.cuda.empty_cache()
+
+    # 3. camera-parallel eval of the test views, bit-equal to render()
+    batch = stack_cameras([c.to_torch(device) for c in test])
+    kw = dict(sh_degree=3, cfg=cfg, width=args.width, height=args.height)
+    torch.cuda.synchronize()
+    reset_launches()
+    frames = dp_render(state3.params, state3.alive, batch, bg, **kw)
+    torch.cuda.synchronize()
+    launches["dp_render"] = kernel_launches()
+    n = len(test)
+    check(launches["dp_render"] == launches_of(expand=n, sort=n, composite=n),
+          f"dp_render: one K1, sort and K2 per camera ({n})")
+    reset_launches()
+    for i, c in enumerate(test):
+        ref = render(c.to_torch(device), state3, bg, cfg=cfg)
+        check(all(torch.equal(a[i], ref[k]) for a, k in zip(
+            frames, ("render", "render_alpha", "render_depth"))),
+              f"dp_render frame {i} (color, alpha, depth) bit-equal to render()'s")
+    dpr_ms = cuda_ms(lambda: dp_render(state3.params, state3.alive, batch, bg, **kw), 5) / n
+    render_ms = cuda_ms(lambda: render(test[0].to_torch(device), state3, bg, cfg=cfg), 5)
+    checks.append(kernel_launches())
+    print(f"  dp_render: {dpr_ms:.3f} ms per frame, render(): {render_ms:.3f} ms (CUDA-event "
+          "medians of 5)")
+    out["dp_render_ms"], out["render_ms"] = dpr_ms, render_ms
+
+    # 4. the ellipse path through render() and render2d, saved as PNGs
+    path = generate_ellipse_path(train, n_frames=ORBIT_FRAMES)
+    for tag, fn, st, kernel in (("orbit_3dgs", render, state3, "composite"),
+                                ("orbit_2dgs", render2d, state2, "surfel_composite")):
+        frame_dir = os.path.join(WORK, tag)
+        os.makedirs(frame_dir)
+        torch.cuda.synchronize()
+        reset_launches()
+        alphas = []
+        for i, mc in enumerate(path):
+            o = fn(mc.to_torch(device), st, bg, cfg=cfg)
+            check(bool(torch.isfinite(o["render"]).all()), f"{tag} frame {i}: finite")
+            alphas.append(float(o["render_alpha"].mean()))
+            save_img_u8(o["render"].cpu().numpy(), os.path.join(frame_dir, f"{i:03d}.png"))
+        launches[tag] = kernel_launches()
+        check(launches[tag] == launches_of(expand=ORBIT_FRAMES, sort=ORBIT_FRAMES,
+                                           **{kernel: ORBIT_FRAMES}),
+              f"{tag}: one K1, sort and {'K4' if kernel != 'composite' else 'K2'} per frame")
+        check(min(alphas) > 0, f"{tag}: every frame covers the scene (mean alpha "
+              f"{min(alphas):.4f} .. {max(alphas):.4f})")
+        with Image.open(os.path.join(frame_dir, "000.png")) as im:
+            check(im.size == (args.width, args.height) and im.mode == "RGB",
+                  f"{tag}: PNGs written ({im.size[0]}x{im.size[1]})")
+
+    # 5. the metrics app on the card against the CPU
+    pred, gt = os.path.join(METRICS, "pred"), os.path.join(METRICS, "gt")
+    reset_launches()
+    with proxy_lpips_only():
+        t0 = time.perf_counter()
+        res = metrics.evaluate_dirs(pred, gt, use_alpha=True, device=device)
+        metrics_s = time.perf_counter() - t0
+        res_cpu = metrics.evaluate_dirs(pred, gt, use_alpha=True, device="cpu")
+    check(res["lpips_backend"] == res_cpu["lpips_backend"] == "lpips_proxy"
+          and res["n_images"] == 2, f"metrics on the card: {json.dumps(res)}")
+    for k, tol in (("psnr", 1e-5), ("ssim", 1e-5), ("lpips_proxy", 1e-4)):
+        check(abs(res[k] - res_cpu[k]) <= tol * abs(res_cpu[k]),
+              f"{k} on the card {res[k]:.8g} vs the CPU {res_cpu[k]:.8g}: within {tol:g} "
+              "relative")
+    rng = np.random.default_rng(args.seed)
+    weights = {}
+    for i, (cout, cin) in enumerate(perceptual._VGG_CHANNELS):
+        weights[f"conv{i}_w"] = rng.normal(0, 0.2 / np.sqrt(cin * 9),
+                                           (cout, cin, 3, 3)).astype(np.float32)
+        weights[f"conv{i}_b"] = rng.uniform(0, 0.1, cout).astype(np.float32)
+    for j, c in enumerate(perceptual._LPIPS_TAP_CHANNELS):
+        weights[f"lin{j}"] = rng.uniform(0, 1, c).astype(np.float32)
+    wpath = os.path.join(WORK, "lpips_random.npz")
+    np.savez(wpath, **weights)
+    crop = os.path.join(WORK, "crop")
+    for sub, src in (("pred", pred), ("gt", gt)):
+        os.makedirs(os.path.join(crop, sub))
+        for name in os.listdir(src):
+            with Image.open(os.path.join(src, name)) as im:
+                x, y = im.size[0] // 2 - 128, im.size[1] // 2 - 128
+                im.crop((x, y, x + 256, y + 256)).save(os.path.join(crop, sub, name))
+    lp_card = metrics.evaluate_dirs(os.path.join(crop, "pred"), os.path.join(crop, "gt"),
+                                    lpips_weights=wpath, device=device)
+    lp_cpu = metrics.evaluate_dirs(os.path.join(crop, "pred"), os.path.join(crop, "gt"),
+                                   lpips_weights=wpath, device="cpu")
+    check(lp_card["lpips_backend"] == "lpips" and lp_card["lpips"] > 0
+          and abs(lp_card["lpips"] - lp_cpu["lpips"]) <= 1e-4 * lp_cpu["lpips"],
+          f"LPIPS (random weights of the true shapes) on a 256x256 crop: card "
+          f"{lp_card['lpips']:.8g} vs CPU {lp_cpu['lpips']:.8g}, within 1e-4 relative")
+    name = sorted(os.listdir(pred))[0]
+    a = torch.as_tensor(metrics._load(os.path.join(pred, name))[0], device=device)
+    b = torch.as_tensor(metrics._load(os.path.join(gt, name))[0], device=device)
+    w_dev = perceptual.lpips_weights_to(weights, device)
+    ms = {"psnr_ssim": cuda_ms(lambda: (psnr(a, b), ssim(a, b)), 5),
+          "lpips_proxy": cuda_ms(lambda: perceptual.lpips_proxy(a, b), 5),
+          "lpips": cuda_ms(lambda: perceptual.lpips(a, b, w_dev), 3)}
+    check(float(perceptual.lpips(a, b, w_dev)) > 0, "LPIPS at full width on the card is > 0")
+    check(kernel_launches() == launches_of(), "the metrics launch none of K1-K6")
+    print(f"  metrics per {args.width}x{args.height} image on the card, ms (CUDA-event "
+          f"medians): {json.dumps({k: round(v, 4) for k, v in ms.items()})}; evaluate_dirs "
+          f"{metrics_s:.3f} s for 2 images")
+    out["metrics_ms"] = ms
+
+    # 6. the viewer
+    out["viewer_ms"] = viewer_round_trip(state3, test[0], cfg, bg, device, launches)
+    print(f"  viewer round trip (request -> {args.width}x{args.height} frame + verify): "
+          f"{out['viewer_ms']:.3f} ms")
+
+    # 7. segmentation_2d --mask_dir on a copy of phase 12's scene, without cv2
+    seg_scene = os.path.join(WORK, "seg2d_scene")
+    seg_masks = os.path.join(WORK, "seg2d_masks")
+    for sub in ("images", "sparse"):
+        shutil.copytree(os.path.join(scene_dir, sub), os.path.join(seg_scene, sub))
+    shutil.copytree(os.path.join(scene_dir, "masked_image_rgba", "obj"),
+                    os.path.join(seg_masks, "obj"))
+    import yaml
+
+    with open(os.path.join(seg_scene, "description.yml"), "w") as f:
+        yaml.safe_dump({"prompts": "obj", "ext": "png", "detect_conf": 0.3}, f)
+    saved_cv2 = sys.modules.get("cv2", "absent")
+    sys.modules["cv2"] = None  # an import of cv2 raises ImportError inside the app
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        segmentation_2d.main(["-s", seg_scene, "--mask_dir", seg_masks])
+        seg_s = time.perf_counter() - t0
+    finally:
+        if saved_cv2 == "absent":
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved_cv2
+    check(kernel_launches() == launches_of(), "segmentation_2d launches no kernel")
+    names = sorted(os.listdir(os.path.join(seg_masks, "obj")))
+    for sub in ("obj", "masked"):
+        written = sorted(os.listdir(os.path.join(seg_scene, "masked_image_rgba", sub)))
+        check(written == names, f"segmentation_2d wrote masked_image_rgba/{sub}/ for "
+              f"{len(names)} views")
+    for name in names:
+        with Image.open(os.path.join(seg_masks, "obj", name)) as im:
+            mask = np.asarray(im)[..., 3] > 0
+        want = ellipse_open_close(mask)
+        with Image.open(os.path.join(seg_scene, "masked_image_rgba", "obj", name)) as im:
+            rgba = np.asarray(im)
+        with Image.open(os.path.join(seg_scene, "images", name)) as im:
+            rgb = np.asarray(im.convert("RGB"))
+        check(np.array_equal(rgba[..., 3] > 0, want) and np.array_equal(rgba[..., :3], rgb)
+              and set(np.unique(rgba[..., 3])) <= {0, 255},
+              f"segmentation_2d {name}: alpha = open-then-close of the mask "
+              f"({int(want.sum())} px, {int((want != mask).sum())} changed), RGB = the image")
+    print(f"  segmentation_2d: {seg_s:.3f} s for {len(names)} views")
+    out["seg2d_s"] = seg_s
+
+    wall = time.perf_counter() - t_phase
+    print(f"  phase wall {wall:.2f} s")
+    out["wall_s"] = wall
+    main_path = {k: sum(v[k] for v in launches.values()) for k in kernel_launches()}
+    out["launches_by_stage"] = launches
+    out["check_launches"] = {k: sum(c[k] for c in checks) for k in kernel_launches()}
+    return main_path, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2563,6 +3103,7 @@ def main(argv=None) -> int:
 
     print(f"[2] full width: {args.n} gaussians, {args.width}x{args.height}, render_3dgs")
     scene_dir, model_dir, launches, _ = phase_full_width(args, device)
+    keep_for_metrics(scene_dir, model_dir)
 
     print(f"[3] kernels vs plain versions at {args.mid_n} / {args.mid_width}x{args.mid_height}")
     k1_err, k2_err = phase_parity_mid(args, device)
@@ -2630,7 +3171,16 @@ def main(argv=None) -> int:
           "truncate_opacity, align_2dgs, extract_mesh")
     scorp2d_launches, mesh_launches, scorp2d = phase_scorp2d(args, device)
     print(f"  SCORP 2DGS: {json.dumps(scorp2d)}")
+    torch.cuda.empty_cache()
+
+    print(f"[14] scale-out and the render consumers at full width: {args.n} gaussians, "
+          f"{SCORP_VIEWS} views at {args.width}x{args.height}: dp_train_step and "
+          f"dp_train_step_2d (B={DP_BATCH}, one-rank NCCL group), dp_render, the ellipse path, "
+          "metrics, the viewer, segmentation_2d")
+    dp_launches, dp = phase_dp(args, device)
+    print(f"  scale-out: {json.dumps(dp)}")
     shutil.rmtree(WORK, ignore_errors=True)
+    shutil.rmtree(METRICS, ignore_errors=True)
 
     def timed(d):
         return {k: d[k] for k in ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by")}
@@ -2650,7 +3200,9 @@ def main(argv=None) -> int:
          "bound_ms_int64_keys": full["k1"]["bound_ms_int64_keys"],
          "kept": full["k1"]["kept"], "kept_golden": full["k1"]["golden"],
          "launches_scorp": scorp_launches["expand"],
-         "launches_scorp2d": scorp2d_launches["expand"], "launches_mesh": mesh_launches["expand"]},
+         "launches_scorp2d": scorp2d_launches["expand"], "launches_mesh": mesh_launches["expand"],
+         "launches_dp": dp_launches["expand"], "sort_launches_dp": dp_launches["sort"],
+         "launches_dp_checks": dp["check_launches"]["expand"]},
         {"name": "K2 composite", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train_launches["composite"],
          "launches_eval": launches["composite"],
@@ -2658,29 +3210,39 @@ def main(argv=None) -> int:
          "ms_train": step["k2_train_ms"], "library_ms": None,
          "slots": full["k2"]["slots"], "slots_train": step["k2_slots"],
          "launches_scorp": scorp_launches["composite"],
-         "launches_scorp2d": scorp2d_launches["composite"]},
+         "launches_scorp2d": scorp2d_launches["composite"],
+         "launches_dp": dp_launches["composite"],
+         "launches_dp_checks": dp["check_launches"]["composite"]},
         {"name": "K3 composite_backward", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train_launches["backward"],
          "max_abs_err": k3_err, **timed(step["k3"]),
          "library_ms": None, "slots": step["k3"]["slots"], "atomics": step["k3"]["atomics"],
-         "launches_scorp": scorp_launches["backward"]},
+         "launches_scorp": scorp_launches["backward"],
+         "launches_dp": dp_launches["backward"],
+         "launches_dp_checks": dp["check_launches"]["backward"]},
         {"name": "K4 surfel_composite", "route": "cuda", "source": SK_SOURCE,
          "replaces": K4_REPLACES, "launches": launches2d["surfel_composite"],
          "launches_2dgs_train_evals": train2d_launches["surfel_composite"],
          "max_abs_err": eval2d["k4"]["err"], **timed(eval2d["k4"]), "library_ms": None,
          "launches_scorp2d": scorp2d_launches["surfel_composite"],
-         "launches_mesh": mesh_launches["surfel_composite"]},
+         "launches_mesh": mesh_launches["surfel_composite"],
+         "launches_dp": dp_launches["surfel_composite"],
+         "launches_dp_checks": dp["check_launches"]["surfel_composite"]},
         {"name": "K5 surfel_composite_train", "route": "cuda", "source": SK_SOURCE,
          "replaces": K5_REPLACES, "launches": train2d_launches["surfel_composite_train"],
          "max_abs_err": k5_err, **timed(step2d["k5"]), "library_ms": None,
          "slots": step2d["slots"]["K5"],
-         "launches_scorp2d": scorp2d_launches["surfel_composite_train"]},
+         "launches_scorp2d": scorp2d_launches["surfel_composite_train"],
+         "launches_dp": dp_launches["surfel_composite_train"],
+         "launches_dp_checks": dp["check_launches"]["surfel_composite_train"]},
         {"name": "K6 surfel_backward", "route": "cuda", "source": K6_SOURCE,
          "replaces": K6_REPLACES, "launches": train2d_launches["surfel_backward"],
          "max_abs_err": k6_err[0], "max_rel_err_per_column": k6_err[1],
          **timed(step2d["k6"]), "library_ms": None,
          "slots": step2d["slots"]["K6"],
-         "launches_scorp2d": scorp2d_launches["surfel_backward"]},
+         "launches_scorp2d": scorp2d_launches["surfel_backward"],
+         "launches_dp": dp_launches["surfel_backward"],
+         "launches_dp_checks": dp["check_launches"]["surfel_backward"]},
     ]
     print(f"  training app: loss {train['loss_first']:.6f} -> {train['loss_last']:.6f}, "
           f"{train['wall_s']:.2f} s; train_step {step['step_ms']:.3f} ms")

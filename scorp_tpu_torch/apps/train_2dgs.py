@@ -14,8 +14,9 @@ hyperparameter deltas (`Optimization2DParams`: lambda_dist, depth_ratio,
 opacity_cull 0.5, max_screen_size 0.2, ...).
 
 `--device cpu` runs the kernels' plain PyTorch versions; without a GPU the
-default `cuda` raises. `--gui` (the SIBR viewer) is not ported yet
-(ROADMAP.md, "Scale-out and viewer") and raises.
+default `cuda` raises. `--gui` serves the SIBR network viewer on
+`--ip`:`--port` once per iteration, frames rendered by `render2d` (the
+reference's live viewer call site).
 """
 
 from __future__ import annotations
@@ -55,10 +56,6 @@ def main(argv=None):
                         help="torch device to train on (default cuda; cpu runs the "
                              "kernels' plain PyTorch versions)")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
-    if args.gui:
-        raise NotImplementedError(
-            "--gui (the SIBR network viewer) is not ported to scorp_tpu_torch yet: "
-            "ROADMAP.md, queue item 4 'Scale-out and viewer'")
     device = resolve_device(args.device)
     args.save_iterations.append(args.iterations)
 
@@ -78,6 +75,7 @@ def main(argv=None):
         args.test_iterations, args.save_iterations,
         args.checkpoint_iterations, args.start_checkpoint, args.debug_from,
         quiet=args.quiet, device=device, surfel=True,
+        ip=args.ip if args.gui else None, port=args.port,
     )
     print("\nTraining complete.")
     return result

@@ -12,13 +12,16 @@ of slots, and the rasterizer's key capacities double after any iteration
 that dropped keys.
 
 `--device cpu` runs the kernels' plain PyTorch versions; without a GPU the
-default `cuda` raises. `--gui` (the SIBR viewer) and `--profile` are not
-ported yet (ROADMAP.md, "Scale-out and viewer" and the training slice's
-left-out list) and raise.
+default `cuda` raises. `--gui` serves the SIBR network viewer on
+`--ip`:`--port` once per iteration (`viewer.network_gui.gui_tick`; the
+reference ships this hook commented out for 3DGS). `--profile <dir>` writes
+a torch.profiler trace of the run (Chrome JSON) into <dir>, where the JAX
+app writes a jax.profiler trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import queue
@@ -56,6 +59,7 @@ from ..train import (
     train_step_2d,
 )
 from ..utils.progress import ProgressMeter
+from ..viewer.network_gui import gui_tick, maybe_create_gui
 
 
 def opt_params_from_args(opt: OptimizationParams, cls=OptParams) -> OptParams:
@@ -217,6 +221,8 @@ def training(
     quiet: bool = False,
     device: str | torch.device = "cuda",
     surfel: bool = False,
+    ip: str | None = None,
+    port: int = 6009,
 ):
     """Returns (scene, state, adam, log) with `log` holding each
     iteration's loss and dropped-key count, the capacity changes, the raster
@@ -226,7 +232,8 @@ def training(
 
     `surfel=True` is the 2DGS trainer's loop (apps/train_2dgs.py): surfels
     from the point cloud, `train_step_2d` with Opt2DParams and `render2d`
-    for the evaluations; everything else is shared."""
+    for the evaluations; everything else is shared. With `ip`, the SIBR
+    viewer is served on ip:port once per iteration."""
     dev = resolve_device(device)
     if not dataset.model_path:
         dataset.model_path = os.path.join("./output/", str(uuid.uuid4())[:10])
@@ -257,6 +264,15 @@ def training(
                         np.float32)
     cfg = tuned_raster_config(state.capacity)
 
+    gui = maybe_create_gui(ip, port)
+
+    def gui_render(minicam, scaling_modifier):
+        with torch.no_grad():
+            out = render_fn(minicam.to_torch(dev), state, bg_fixed,
+                            scaling_modifier=float(scaling_modifier), sh_degree=active_sh,
+                            cfg=cfg)
+        return out["render"].cpu().numpy()
+
     sampler = CameraSampler(scene.get_train_cameras())
     gt_cache = GtDeviceCache(scene.get_train_cameras(), dev)
     rng = np.random.default_rng(0)
@@ -272,6 +288,9 @@ def training(
     for iteration in range(first_iter + 1, opt.iterations + 1):
         if iteration % 1000 == 0 and active_sh < dataset.sh_degree:
             active_sh += 1
+
+        if gui is not None:
+            gui_tick(gui, gui_render, dataset.source_path, iteration, opt.iterations)
 
         cam, gt = sampler.next()
         bg = rng.uniform(size=3).astype(np.float32) if opt.random_background else bg_fixed
@@ -356,6 +375,8 @@ def training(
 
     sampler.close()
     meter.close()
+    if gui is not None:
+        gui.close()
     if tb_writer is not None:
         tb_writer.close()
     wall = time.time() - t_start
@@ -384,19 +405,11 @@ def main(argv=None):
     parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--profile", type=str, default=None,
-                        help="not ported yet: raises")
+                        help="write a torch.profiler trace (Chrome JSON) to this directory")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default cuda; cpu runs the "
                              "kernels' plain PyTorch versions)")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
-    if args.gui:
-        raise NotImplementedError(
-            "--gui (the SIBR network viewer) is not ported to scorp_tpu_torch yet: "
-            "ROADMAP.md, queue item 4 'Scale-out and viewer'")
-    if args.profile:
-        raise NotImplementedError(
-            "--profile is not ported to scorp_tpu_torch yet: ROADMAP.md, queue item 1, "
-            "'left out of the training slice'")
     device = resolve_device(args.device)
     args.save_iterations.append(args.iterations)
 
@@ -411,20 +424,44 @@ def main(argv=None):
     args.model_path = dataset.model_path
     save_cfg_args(dataset.model_path, Namespace(**vars(args)))
 
-    result = training(
-        dataset,
-        OptimizationParams.extract(args),
-        PipelineParams.extract(args),
-        args.test_iterations,
-        args.save_iterations,
-        args.checkpoint_iterations,
-        args.start_checkpoint,
-        args.debug_from,
-        quiet=args.quiet,
-        device=device,
-    )
+    with profiled(args.profile, device):
+        result = training(
+            dataset,
+            OptimizationParams.extract(args),
+            PipelineParams.extract(args),
+            args.test_iterations,
+            args.save_iterations,
+            args.checkpoint_iterations,
+            args.start_checkpoint,
+            args.debug_from,
+            quiet=args.quiet,
+            device=device,
+            ip=args.ip if args.gui else None,
+            port=args.port,
+        )
     print("\nTraining complete.")
     return result
+
+
+@contextlib.contextmanager
+def profiled(trace_dir: str | None, device: torch.device):
+    """torch.profiler over the block (host ops, and CUDA kernels on a CUDA
+    device), written to <trace_dir>/train_3dgs.pt.trace.json; nothing
+    without a directory."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(trace_dir, "train_3dgs.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ The reference numerics:
     zero-padded image in f32: no convolution routine, so no TF32 either;
   * PSNR/MSE per image;
   * the isotropic scaling regularizer;
-  * min-max depth normalization with the extrema detached.
+  * min-max depth normalization with the extrema detached;
+  * the patchwise depth loss `random_patch_loss`, its patch corners drawn
+    from a torch.Generator (the JAX package's from jax.random).
 """
 
 from __future__ import annotations
@@ -108,3 +110,42 @@ def pearson_depth_loss(depth_src: torch.Tensor, depth_target: torch.Tensor) -> t
     src = src / (src.std(dim=(1, 2), keepdim=True, correction=0) + 1e-6)
     tgt = tgt / (tgt.std(dim=(1, 2), keepdim=True, correction=0) + 1e-6)
     return 1.0 - (src * tgt).mean(dim=(1, 2)).mean()
+
+
+def _patch_loss(depth_src: torch.Tensor, depth_tgt: torch.Tensor, x0: torch.Tensor,
+                y0: torch.Tensor, box_p: int, loss_func: str) -> torch.Tensor:
+    """random_patch_loss on given patch corners: rows x0.., columns y0.."""
+    src = depth_src.squeeze()
+    tgt = depth_tgt.squeeze()
+    ar = torch.arange(box_p, device=src.device)
+    rows = (x0.to(src.device)[:, None] + ar)[:, :, None]  # [n, box, 1]
+    cols = (y0.to(src.device)[:, None] + ar)[:, None, :]  # [n, 1, box]
+    ps, pt = src[rows, cols], tgt[rows, cols]
+    if loss_func == "l1":
+        return l1_loss(depth_normalize(ps), depth_normalize(pt))
+    if loss_func == "l2":
+        return l2_loss(depth_normalize(ps), depth_normalize(pt))
+    if loss_func == "pearson":
+        return pearson_depth_loss(ps, pt)
+    raise ValueError(f"Unknown loss function: {loss_func}")
+
+
+def random_patch_loss(
+    depth_src: torch.Tensor,
+    depth_tgt: torch.Tensor,
+    box_p: int,
+    p_corr: float,
+    generator: torch.Generator,
+    loss_func: str = "l1",
+) -> torch.Tensor:
+    """Patchwise normalised depth loss (reference gs2dgs loss_utils.py:
+    117-154): p_corr·(H/box)(W/box) random box_p-sized patches, their
+    min-max normalised depths compared by `loss_func` (l1, l2 or pearson).
+    The corners are uniform in [0, H - box_p) x [0, W - box_p), drawn from
+    `generator` (on the depth's device); the JAX package draws them with
+    jax.random, so the two streams differ by design."""
+    h, w = depth_src.squeeze().shape
+    n_corr = int(p_corr * (h // box_p) * (w // box_p))
+    x0 = torch.randint(0, h - box_p, (n_corr,), generator=generator, device=generator.device)
+    y0 = torch.randint(0, w - box_p, (n_corr,), generator=generator, device=generator.device)
+    return _patch_loss(depth_src, depth_tgt, x0, y0, box_p, loss_func)

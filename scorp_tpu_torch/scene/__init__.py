@@ -1,4 +1,4 @@
-from .cameras import Camera, GroundTruth, load_ground_truth  # noqa: F401
+from .cameras import Camera, GroundTruth, MiniCam, load_ground_truth  # noqa: F401
 from .dataset_readers import (  # noqa: F401
     CameraInfo,
     SceneInfo,

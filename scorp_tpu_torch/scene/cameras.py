@@ -8,7 +8,8 @@ by 1e3; znear=0.01 / zfar=100. The
 device-facing view is `to_torch(device)`, returning a `core.camera.Camera`
 for the rasterizer, cached per resolution, field of view, pose and device,
 so that the alignment stage's `scale_resolution` / `restore_resolution`
-round trip finds the original device camera again.
+round trip finds the original device camera again. `MiniCam` is the
+network viewer's camera and the novel-view paths'.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from PIL import Image
 
 from ..core.camera import Camera as DeviceCamera
-from ..core.camera import make_camera, world_to_view
+from ..core.camera import camera_from_numpy, make_camera, world_to_view
 
 
 class GroundTruth(NamedTuple):
@@ -178,3 +179,27 @@ class Camera:
     @property
     def world_view_transform(self) -> np.ndarray:
         return world_to_view(self.R, self.T, self.trans, self.scale).T
+
+
+class MiniCam:
+    """Viewer camera (the network GUI's contract, reference cameras.py:
+    172-193): resolution, fields of view, clip planes and the transposed
+    view and full-projection matrices as the viewer sends them."""
+
+    def __init__(self, width, height, fovy, fovx, znear, zfar,
+                 world_view_transform: np.ndarray, full_proj_transform: np.ndarray):
+        self.image_width = width
+        self.image_height = height
+        self.fovy = fovy
+        self.fovx = fovx
+        self.znear = znear
+        self.zfar = zfar
+        self.world_view_transform = world_view_transform
+        self.full_proj_transform = full_proj_transform
+        self.camera_center = np.linalg.inv(world_view_transform)[3, :3]
+
+    def to_torch(self, device: str | torch.device = "cuda") -> DeviceCamera:
+        """The rasterizer's camera on `device`, as `Camera.to_torch` builds it."""
+        return camera_from_numpy(self.world_view_transform, self.full_proj_transform,
+                                 self.fovx, self.fovy, self.image_width, self.image_height,
+                                 self.camera_center, device=device)
