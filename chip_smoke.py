@@ -114,11 +114,23 @@ Phases, in order (any failure exits non-zero):
      plain versions on the card, max |diff| <= 1e-4 x max |vote| and equal
      signs where |vote| > 1e-4 x max; the vote's ms),
      `apps.view_selection.main` (1-3 crops, no kernel), the proxy (the
-     segmented object at SH 0, scaled 0.6, rotated 0.5 rad about z,
-     translated), `apps.align_3dgs_clpe_9dof.align` with the generated
-     64-rotation bank and an empty precomputed matcher (one K1, sort and K2
-     per render; the coarse init's centroid within 0.35 x the object's xyz
-     std; the ICP's seconds and host syncs), a 3.375x render of the aligned
+     object cluster at SH 0, scaled 0.6, rotated 0.5 rad about z,
+     translated; the cluster is also the alignment's scene object in
+     gs_seg/obj.ply, as the crops show it alone),
+     `apps.align_3dgs_clpe_9dof.align` with the generated 64-rotation
+     bank and the app's default matcher ("auto": SIFT on the card,
+     pipeline/sift.py) for ALIGN_ROUNDS rounds, the 9-DoF Adam in the last
+     (one K1, sort and K2 per render; per round the SIFT calls,
+     keypoints, cross-checked matches, correspondences lifted and the
+     in-app RANSAC / Adam calls and times; at least one round lifting >= 3
+     correspondences into a solver; the aligned proxy's centroid within
+     0.35 x the object's xyz std; the centroid error after the coarse init
+     and after the rounds, the recovered scale and rotation beside the
+     true ones; the ICP's seconds and host syncs), the SIFT of one of the
+     alignment's crop pairs on the card against the CPU (keypoint counts
+     within 1%, >= 99% of the CPU's keypoints within 1e-3 px on the card
+     with descriptors within +-1, >= 95% of its cross-checked pairs on the
+     card; ms per pair, host syncs, peak memory), a 3.375x render of the aligned
      proxy equal to the plain versions', at default_raster_config's key
      slots and at twice as many, where none is dropped, `pc_align_ransac` (2,000 hypotheses)
      and `adam_algorithm_3d3d_9dof` (3,000 steps) recovering a known
@@ -1786,6 +1798,7 @@ def phase_surfel_train_step(args, device):
 
 SCORP_VIEWS = 10  # 8 train + 2 test orbiting views
 REFINE_ITERS = 30  # post_refine_gs steps in the SCORP phase
+ALIGN_ROUNDS = 4   # render-match-solve rounds of phase 12's align (the app's default: 6)
 
 
 @contextlib.contextmanager
@@ -1925,10 +1938,90 @@ def check_votes(state, cam, mask, bg, cfg, label: str, surfel: bool = False) -> 
     return errs
 
 
+def check_sift_card_vs_cpu(image1, image2, device) -> dict:
+    """The port's SIFT (pipeline/sift.py) on one crop pair of the alignment
+    (the masked object crop and the proxy render) on the card against the
+    CPU: keypoint counts within 1%, >= 99% of the CPU's keypoints on the
+    card within 1e-3 px (same octave word, angle within 0.01 deg) with
+    every descriptor entry within +-1, >= 95% of the CPU's cross-checked
+    pairs on the card (both ends within 1e-3 px); the card's ms per pair
+    (CUDA events, median of 5), device busy time, ATen ops, host syncs and
+    peak memory."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from scorp_tpu_torch.pipeline import sift
+
+    grays = [sift.to_gray(image1), sift.to_gray(image2)]
+    shapes = [g.shape for g in grays]
+    kps = {}
+    for dev in (device, torch.device("cpu")):
+        kps[dev.type] = [sift.detect_and_compute(torch.as_tensor(g, device=dev))
+                         for g in grays]
+    out = {"shapes": [list(s) for s in shapes], "keypoints": {}, "paired": [],
+           "desc_within_1": []}
+    for i in range(2):
+        card = {k: v.cpu().numpy() for k, v in kps[device.type][i].items()}
+        cpu = {k: v.numpy() for k, v in kps["cpu"][i].items()}
+        n_card, n_cpu = len(card["size"]), len(cpu["size"])
+        out["keypoints"][f"image{i}"] = [n_card, n_cpu]
+        check(abs(n_card - n_cpu) <= 0.01 * n_cpu,
+              f"SIFT image {i} ({shapes[i][1]}x{shapes[i][0]}): {n_card} keypoints on the "
+              f"card, {n_cpu} on the CPU (within 1%)")
+        tree = cKDTree(card["pt"])
+        paired = within = 0
+        used = set()
+        for j in range(n_cpu):
+            for k in tree.query_ball_point(cpu["pt"][j], 1e-3):
+                da = abs(float(card["angle"][k]) - float(cpu["angle"][j]))
+                if (k not in used and card["octave"][k] == cpu["octave"][j]
+                        and min(da, 360 - da) <= 0.01):
+                    used.add(k)
+                    paired += 1
+                    within += int(np.abs(card["desc"][k] - cpu["desc"][j]).max() <= 1)
+                    break
+        out["paired"].append(paired / max(n_cpu, 1))
+        out["desc_within_1"].append(within / max(n_cpu, 1))
+        check(within >= 0.99 * n_cpu,
+              f"SIFT image {i}: {paired} of the CPU's {n_cpu} keypoints on the card within "
+              f"1e-3 px, {within} of them with every descriptor entry within +-1 (>= 99%)")
+    pairs = {}
+    for dev, k in kps.items():
+        q, t, _ = sift.cross_check_match(k[0]["desc"], k[1]["desc"])
+        pairs[dev] = np.concatenate([k[0]["pt"][q].cpu().numpy(), k[1]["pt"][t].cpu().numpy()],
+                                    1)
+    tree = cKDTree(pairs[device.type])
+    shared = sum(any(np.abs(pairs[device.type][k] - p).max() <= 1e-3
+                     for k in tree.query_ball_point(p, 2e-3)) for p in pairs["cpu"])
+    out["pairs"] = [len(pairs[device.type]), len(pairs["cpu"]), shared]
+    check(shared >= 0.95 * len(pairs["cpu"]) and len(pairs["cpu"]) > 0,
+          f"SIFT pairs: {shared} of the CPU's {len(pairs['cpu'])} cross-checked pairs on the "
+          f"card (>= 95%; the card has {len(pairs[device.type])})")
+    g0, g1 = (torch.as_tensor(g, device=device) for g in grays)
+    out["ms_per_pair"] = cuda_ms(lambda: sift.match_sift(g0, g1), 5)
+    out["host_syncs"] = counted_syncs(lambda: sift.match_sift(g0, g1))[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sift.match_sift(g0, g1)
+    torch.cuda.synchronize()
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    out["busy_ms"], top = device_profile(lambda: sift.match_sift(g0, g1), 3)
+    out["ops"] = dispatched_ops(lambda: sift.match_sift(g0, g1))
+    print(f"  SIFT of a crop pair ({shapes[0][1]}x{shapes[0][0]}, {shapes[1][1]}x{shapes[1][0]}):"
+          f" {out['ms_per_pair']:.3f} ms per pair on the card (CUDA events, median of 5), "
+          f"device busy {out['busy_ms']:.3f} ms, {out['ops']} ATen ops, {out['host_syncs']} "
+          f"host syncs, peak {out['peak_mib']:.1f} MiB above the {base / 2**20:.1f} MiB held "
+          "before")
+    for name, ms in top[:5]:
+        print(f"    {ms:8.3f} ms  {name}")
+    return out
+
+
 def phase_scorp(args, device):
     """Phase 12: the SCORP object path at full width through its entry
     points: segmentation_3dgs -> view_selection -> align (coarse init, then
-    render-and-match rounds with an empty precomputed matcher) ->
+    render-and-match rounds with SIFT correspondences on the card) ->
     post_refine_gs -> render_3dgs, with launch counters per stage; the vote
     and a 3.375x alignment render held against the plain versions; RANSAC
     and the 9-DoF Adam on a known similarity; refine_step's time."""
@@ -1940,7 +2033,7 @@ def phase_scorp(args, device):
     from scorp_tpu_torch.apps import view_selection
     from scorp_tpu_torch.config import ModelParams
     from scorp_tpu_torch.core.plyio import GaussianData, load_gaussian_ply, save_gaussian_ply
-    from scorp_tpu_torch.pipeline import solvers
+    from scorp_tpu_torch.pipeline import matching, sift, solvers
     from scorp_tpu_torch.pipeline.gs_transform import (
         gaussians_rotate, gaussians_scale, gaussians_translate,
     )
@@ -2051,9 +2144,17 @@ def phase_scorp(args, device):
     check(1 <= len(crops) <= 3, f"{len(crops)} crops written")
     check(kernel_launches() == launches_of(), "view selection launches no kernel")
 
-    # 3. the generated proxy: the segmented object at SH 0, scaled 0.6,
-    #    rotated 0.5 rad about z and translated (tests/test_scorp_pipeline.py)
-    seg = load_gaussian_ply(os.path.join(model_dir, "gs_seg", "obj.ply"), max_sh_degree=3)
+    # 3. the scene object and its generated proxy. The masks' crops show the
+    #    object (the cluster) alone, while the segmentation also selects the
+    #    Gaussians in front of it (precision ~0.2, above), whose depths would
+    #    lift the object's matches onto them and whose colours the crops do
+    #    not show. So the alignment's scene object (gs_seg/obj.ply) is the
+    #    cluster, and the proxy, TRELLIS's stand-in, is the cluster at SH 0,
+    #    scaled 0.6, rotated 0.5 rad about z and translated
+    #    (tests/test_scorp_pipeline.py): the true alignment is scale 1/0.6
+    #    and -0.5 rad about z
+    seg = g_obj
+    save_gaussian_ply(os.path.join(model_dir, "gs_seg", "obj.ply"), seg)
     proxy = GaussianData(xyz=seg.xyz.copy(), f_dc=seg.f_dc.copy(),
                          f_rest=np.zeros((seg.n, 0, 3), np.float32),
                          opacity=seg.opacity.copy(), scaling=seg.scaling.copy(),
@@ -2064,49 +2165,147 @@ def phase_scorp(args, device):
     gaussians_translate(proxy, np.array([0.8, -0.5, 0.4]))
     save_gaussian_ply(os.path.join(model_dir, "generated", "obj.ply"), proxy)
 
-    # 4. alignment: every matcher call finds no pairs, so each round renders
-    #    the proxy (upscaling while it covers too few pixels) and keeps the
-    #    coarse init
-    empty = os.path.join(WORK, "no_matches")
-    os.makedirs(empty)
+    # 4. alignment with the app's default matcher ("auto": SIFT on the card,
+    #    the MASt3R checkpoint being absent): each round renders the proxy
+    #    per camera (upscaling while it covers too few pixels), matches it
+    #    against the masked object crop, lifts the pairs through both depths
+    #    and solves (RANSAC, the 9-DoF Adam in the last round)
     renders = [0]
     icp = {}
-    real_render, real_icp = align_app.render, align_app.best_icp_transform
+    rounds = {}        # round -> its SIFT, match and solver counts
+    current = {}       # the round being run, the coarse init's centroid error
+    crop_pairs = []    # (pixels, image1, image2) of every matcher call
+    names = ("render", "best_icp_transform", "get_matcher", "get_pcd_pair",
+             "pc_align_ransac", "adam_algorithm_3d3d_9dof")
+    real = {name: getattr(align_app, name) for name in names}
+    real_detect, real_match = sift.detect_and_compute, matching.match_sift
+
+    def round_log():
+        return rounds.setdefault(current["round"], {
+            "sift_calls": 0, "keypoints": 0, "matches": 0, "kept": 0, "lifted": 0,
+            "ransac": 0, "adam": 0, "solver_s": 0.0})
 
     def counting_render(*a, **kw):
         renders[0] += 1
-        return real_render(*a, **kw)
+        return real["render"](*a, **kw)
 
     def timed_icp(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        T, icp["syncs"] = counted_syncs(lambda: real_icp(*a, **kw))
+        T, icp["syncs"] = counted_syncs(lambda: real["best_icp_transform"](*a, **kw))
         icp["seconds"] = time.perf_counter() - t
         return T
 
-    align_app.render, align_app.best_icp_transform = counting_render, timed_icp
+    def counting_detect(*a, **kw):
+        kp = real_detect(*a, **kw)
+        round_log()["keypoints"] += len(kp["size"])
+        return kp
+
+    def counting_match(*a, **kw):
+        out = real_match(*a, **kw)
+        log = round_log()
+        log["sift_calls"] += 1
+        log["matches"] += len(out[0])
+        return out
+
+    def recording_matcher(*a, **kw):
+        matcher = real["get_matcher"](*a, **kw)
+        current["matcher"] = type(matcher).__name__
+
+        def call(image1, image2, **k2):
+            uv0, uv1 = matcher(image1, image2, **k2)
+            round_log()["kept"] += len(uv0)
+            crop_pairs.append((image1.size[0] * image1.size[1]
+                               + image2.size[0] * image2.size[1], image1, image2))
+            return uv0, uv1
+        return call
+
+    def recording_pcd_pair(gaussians, *a, **kw):
+        current["round"] = kw["iteration"]
+        round_log()
+        if "coarse_err" not in current:
+            current["coarse_err"] = float(np.linalg.norm(gaussians.xyz.mean(0)
+                                                         - seg.xyz.mean(0)))
+        pcd_o, pcd_r = real["get_pcd_pair"](gaussians, *a, **kw)
+        round_log()["lifted"] = len(pcd_o)
+        return pcd_o, pcd_r
+
+    def timed_solver(name, fn):
+        def solve(*a, **kw):
+            log = round_log()
+            log[name] += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            log["solver_s"] += time.perf_counter() - t
+            return out
+        return solve
+
+    patched = {"render": counting_render, "best_icp_transform": timed_icp,
+               "get_matcher": recording_matcher, "get_pcd_pair": recording_pcd_pair,
+               "pc_align_ransac": timed_solver("ransac", real["pc_align_ransac"]),
+               "adam_algorithm_3d3d_9dof": timed_solver("adam",
+                                                        real["adam_algorithm_3d3d_9dof"])}
+    for name in names:
+        setattr(align_app, name, patched[name])
+    sift.detect_and_compute, matching.match_sift = counting_detect, counting_match
     reset_launches()
     t0 = time.perf_counter()
     try:
-        align_app.align(dataset, None, "obj", num_iterations=6, opt_12dof_iterations=(3, 4),
+        align_app.align(dataset, None, "obj", num_iterations=ALIGN_ROUNDS,
+                        opt_12dof_iterations=(ALIGN_ROUNDS - 1,),
                         rotations_path=os.path.join(WORK, "rotation_matrices"),
-                        matcher_backend="precomputed", matcher_kwargs={"directory": empty},
                         device=device)
     finally:
-        align_app.render, align_app.best_icp_transform = real_render, real_icp
+        for name in names:
+            setattr(align_app, name, real[name])
+        sift.detect_and_compute, matching.match_sift = real_detect, real_match
     torch.cuda.synchronize()
     align_s = time.perf_counter() - t0
     launches["align"] = kernel_launches()
-    print(f"  align: {align_s:.3f} s, {renders[0]} renders; ICP {icp['seconds']:.3f} s with "
-          f"{icp['syncs']} host syncs; launches {launches['align']}")
+    print(f"  align ({current['matcher']}, {ALIGN_ROUNDS} rounds, the 9-DoF Adam in round "
+          f"{ALIGN_ROUNDS - 1}): {align_s:.3f} s, {renders[0]} renders; ICP "
+          f"{icp['seconds']:.3f} s with {icp['syncs']} host syncs; launches {launches['align']}")
+    for it, log in sorted(rounds.items()):
+        print(f"    round {it}: {log['sift_calls']} SIFT calls, {log['keypoints']} keypoints, "
+              f"{log['matches']} cross-checked matches, {log['kept']} after the border "
+              f"filter and subsample, {log['lifted']} lifted; RANSAC calls {log['ransac']}, "
+              f"9-DoF Adam calls {log['adam']}, solver {log['solver_s']:.3f} s")
+    check(current["matcher"] == "SIFTMatcher", "align's default matcher is the port's SIFT")
     check(launches["align"] == launches_of(expand=renders[0], sort=renders[0],
                                            composite=renders[0]),
           f"one K1, sort and K2 per alignment render ({renders[0]})")
-    aligned = load_gaussian_ply(os.path.join(model_dir, "generated_aligned", "obj.ply"))
-    c_err = float(np.linalg.norm(aligned.xyz.mean(0) - seg.xyz.mean(0)))
+    solved = [it for it, log in sorted(rounds.items())
+              if log["lifted"] >= 3 and log["ransac"] + log["adam"] > 0]
+    check(len(solved) >= 1, f"rounds {solved} lifted >= 3 SIFT correspondences into "
+          "pc_align_ransac or the 9-DoF Adam")
     extent = float(seg.xyz.std())
-    check(c_err < 0.35 * extent, f"the coarse init brings the proxy's centroid within "
-          f"0.35 x the object's xyz std ({c_err:.4f} < 0.35 x {extent:.4f})")
+
+    def recovered(name):
+        # the transform the rounds applied so far: the least-squares affine
+        # map from the proxy as written to the aligned proxy, split into
+        # rotation x scale (the true one: 1/0.6 and -0.5 rad about z)
+        g = load_gaussian_ply(os.path.join(model_dir, "generated_aligned", name))
+        src = np.concatenate([proxy.xyz, np.ones((proxy.n, 1))], 1).astype(np.float64)
+        affine = np.linalg.lstsq(src, g.xyz.astype(np.float64), rcond=None)[0][:3].T
+        u, sv, vt = np.linalg.svd(affine)
+        return (g, float(np.linalg.norm(g.xyz.mean(0) - seg.xyz.mean(0))),
+                float(np.cbrt(np.prod(sv))), sv,
+                float(np.arccos(np.clip((np.trace(u @ vt @ rz) - 1) / 2, -1, 1))))
+
+    for it in sorted(rounds):
+        _, e, sc, sv, re = recovered(f"obj_{it}.ply")
+        rounds[it].update(centroid_err=e, scale=sc, rot_err=re)
+        print(f"    after round {it}: centroid error {e:.4f}, scale {sc:.4f} (singular values "
+              f"{np.round(sv, 4).tolist()}), rotation error {re:.4f} rad")
+    aligned, c_err, rec_scale, sv, rot_err = recovered("obj.ply")
+    print(f"  centroid error: coarse init {current['coarse_err']:.4f}, after the rounds "
+          f"{c_err:.4f} (object xyz std {extent:.4f}); recovered scale {rec_scale:.4f} "
+          f"(singular values {np.round(sv, 4).tolist()}) against the true {1 / 0.6:.4f}; "
+          f"rotation error {rot_err:.4f} rad against the true 0.5 rad about z")
+    check(c_err < 0.35 * extent, f"the aligned proxy's centroid is within 0.35 x the "
+          f"object's xyz std ({c_err:.4f} < 0.35 x {extent:.4f})")
+    sift_card = check_sift_card_vs_cpu(*max(crop_pairs, key=lambda p: p[0])[1:], device)
 
     # the largest alignment render: 3.375x the camera's resolution
     big_cam = Scene(dataset, shuffle=False, load_gaussians=False).get_train_cameras()[0]
@@ -2244,6 +2443,9 @@ def phase_scorp(args, device):
     return totals, {
         "launches_by_stage": launches, "vote_ms": vote_ms, "vote_err": vote_errs,
         "icp_s": icp["seconds"], "icp_syncs": icp["syncs"], "ransac_ms": ransac_ms,
+        "align_s": align_s, "align_rounds": {str(k): v for k, v in sorted(rounds.items())},
+        "align_centroid_err": [current["coarse_err"], c_err], "align_rot_err": rot_err,
+        "align_scale": rec_scale, "sift": sift_card,
         "adam_ms": adam_ms, "refine_step_ms": step_ms, "refine_busy_ms": busy,
         "refine_syncs": syncs, "wall_s": wall, "seg_vote_err": seg_err,
         "big_render": [bw, bh, tiles, big_cfg.max_keys], "iou": inter / union,

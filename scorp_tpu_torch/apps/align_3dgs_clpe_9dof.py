@@ -8,7 +8,8 @@ multi-init ICP (batched on the device, pipeline/icp.py); then
 `num_iterations` rounds of render-and-match (render the proxy through the
 port's `render`, K1 and K2, at up to 3.375x the camera's resolution until it
 covers enough pixels; match crops against the masked input via the
-pluggable matcher; lift both match sets to 3D through rendered depths)
+pluggable matcher, by default SIFT on the same device; lift both match
+sets to 3D through rendered depths)
 solved with RANSAC-Umeyama (7-DoF) or, on `opt_shape_iterations`, the Adam
 9-DoF optimizer with orthogonal-frame anisotropic scale. Writes
 model_path/generated_aligned/<obj>_{iter}.ply and the final <obj>.ply.
@@ -204,7 +205,7 @@ def align(
     )
     bg = np.array([1.0, 1.0, 1.0] if dataset.white_background else [0.0, 0.0, 0.0],
                   np.float32)
-    matcher = get_matcher(matcher_backend, **(matcher_kwargs or {}))
+    matcher = get_matcher(matcher_backend, device=dev, **(matcher_kwargs or {}))
 
     cam_list = list(scene.get_train_cameras())
     rgba_dir = os.path.join(dataset.source_path, "masked_image_rgba")

@@ -5,8 +5,10 @@ neighbours). Behind the narrow interface `match(imgA, imgB) -> (uv0, uv1)`
 this port has:
 
   * "precomputed": loads matches from .npz files on disk;
-  * "sift" / "orb": classical reciprocal matching via cv2, imported when a
-    matcher is made (never at module import, so the GPU path needs no cv2);
+  * "sift": OpenCV's SIFT and cross-checked brute-force matching, computed
+    in PyTorch on the alignment's device without cv2 (pipeline/sift.py);
+  * "orb": classical reciprocal matching via cv2, imported when the matcher
+    is made (never at module import, so no other backend needs cv2);
   * "mast3r": not ported; it needs the MASt3R checkpoint, which the
     repository does not ship, and raises naming it.
 
@@ -20,7 +22,11 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 from PIL import Image
+
+from ..device import resolve_device
+from .sift import match_sift, to_gray
 
 
 def _postprocess(uv0, uv1, shape0, shape1, size0, size1, n_points: int):
@@ -43,19 +49,39 @@ def _postprocess(uv0, uv1, shape0, shape1, size0, size1, n_points: int):
     return uv0, uv1
 
 
-class CV2Matcher:
-    """Classical reciprocal feature matcher (SIFT by default)."""
+class SIFTMatcher:
+    """The "sift" backend: the JAX package's cv2 SIFT (4096 features) with
+    cross-checked L2 matching, in PyTorch on `device` (pipeline/sift.py)."""
 
-    def __init__(self, method: str = "sift", n_features: int = 4096):
-        import cv2
+    def __init__(self, n_features: int = 4096, device: str | torch.device = "cuda"):
+        self.n_features = n_features
+        self.device = resolve_device(device)
+
+    def __call__(self, image1: Image.Image, image2: Image.Image,
+                 n_points_per_cam: int = 100, **_):
+        a1, a2 = to_gray(image1), to_gray(image2)
+        uv0, uv1, _ = match_sift(a1, a2, self.n_features, device=self.device)
+        if len(uv0) == 0:
+            return np.zeros((0, 2), int), np.zeros((0, 2), int)
+        return _postprocess(
+            uv0.cpu().numpy().astype(np.float64), uv1.cpu().numpy().astype(np.float64),
+            a1.shape, a2.shape, image1.size, image2.size, n_points_per_cam
+        )
+
+
+class CV2Matcher:
+    """The "orb" backend: cv2's ORB with cross-checked Hamming matching."""
+
+    def __init__(self, n_features: int = 4096):
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError("the orb matcher needs cv2, which is not installed; use "
+                              "--matcher sift or precomputed") from e
 
         self._cv2 = cv2
-        if method == "sift":
-            self.det = cv2.SIFT_create(nfeatures=n_features)
-            self.norm = cv2.NORM_L2
-        else:
-            self.det = cv2.ORB_create(nfeatures=n_features)
-            self.norm = cv2.NORM_HAMMING
+        self.det = cv2.ORB_create(nfeatures=n_features)
+        self.norm = cv2.NORM_HAMMING
 
     def __call__(self, image1: Image.Image, image2: Image.Image,
                  n_points_per_cam: int = 100, **_):
@@ -111,12 +137,15 @@ class MASt3RMatcher:
             "yet; use --matcher sift, orb or precomputed")
 
 
-def get_matcher(backend: str = "auto", **kwargs):
-    """Factory: auto prefers MASt3R when its checkpoint exists, else SIFT."""
+def get_matcher(backend: str = "auto", device: str | torch.device = "cuda", **kwargs):
+    """Factory: auto prefers MASt3R when its checkpoint exists, else SIFT.
+    `device` goes to the backends that compute on one (sift, mast3r)."""
     if backend == "auto":
         backend = "mast3r" if os.path.exists(MASt3RMatcher.CKPT) else "sift"
     if backend == "mast3r":
-        return MASt3RMatcher(**kwargs)
+        return MASt3RMatcher(device=device, **kwargs)
+    if backend == "sift":
+        return SIFTMatcher(device=device, **kwargs)
     if backend == "precomputed":
         return PrecomputedMatcher(**kwargs)
-    return CV2Matcher(method=backend, **kwargs)
+    return CV2Matcher(**kwargs)

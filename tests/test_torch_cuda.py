@@ -9,8 +9,9 @@ ellipse, random surfel scenes with tiles of several key batches, and
 hand-built surfel streams: one emitting lane per warp, one surfel row in
 every tile, pairs within a few ulps of alpha = 1/255; for K2 and K3 the
 same kinds of hand-built 3DGS streams, and one whose keys every warp but
-the first skips by the mask). Needs an NVIDIA GPU and nvcc; skipped
-elsewhere. On a GPU machine:
+the first skips by the mask); and the SIFT matcher (pipeline/sift.py,
+plain PyTorch) on the card against the CPU. Needs an NVIDIA GPU and nvcc;
+skipped elsewhere. On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -41,6 +42,7 @@ from scorp_tpu_torch.ops.raster.surfel_composite import (
     surfel_composite_plain,
     surfel_composite_train,
 )
+from scorp_tpu_torch.pipeline import sift
 
 pytestmark = pytest.mark.cuda
 
@@ -721,3 +723,34 @@ def test_gauss_kernels_on_synthetic_streams(dev, kind):
         near = (alpha[valid] - 1 / 255).abs() <= 16 * ulp
         assert int((near & (alpha[valid] >= 1 / 255)).sum()) > 50
         assert int((near & (alpha[valid] < 1 / 255)).sum()) > 50
+
+
+def test_sift_on_the_card_equals_the_cpu(dev):
+    """SIFT keypoints on the card equal the CPU's (octave word equal, pt
+    within 1e-3 px) with every descriptor entry within +-1, on >= 99% of the
+    CPU's keypoints, and >= 95% of the CPU's cross-checked pairs are the
+    card's, on a 640x480 high-contrast texture and a shifted copy."""
+    from scipy import ndimage
+    from scipy.spatial import cKDTree
+
+    a = ndimage.gaussian_filter(np.random.default_rng(2).uniform(0, 1, (480, 640)), 1.5)
+    img = ((a > np.median(a)) * 200 + 30).astype(np.uint8)
+    images = (img, np.roll(img, (5, 9), axis=(0, 1)))
+    kps, pairs = {}, {}
+    for d in (torch.device("cpu"), dev):
+        k = [sift.detect_and_compute(torch.as_tensor(g, device=d)) for g in images]
+        q, t, _ = sift.cross_check_match(k[0]["desc"], k[1]["desc"])
+        kps[d.type] = [{key: v.cpu().numpy() for key, v in kp.items()} for kp in k]
+        pairs[d.type] = np.concatenate([k[0]["pt"][q].cpu().numpy(),
+                                        k[1]["pt"][t].cpu().numpy()], 1)
+    for cpu, card in zip(kps["cpu"], kps["cuda"]):
+        assert abs(len(card["size"]) - len(cpu["size"])) <= 0.01 * len(cpu["size"])
+        tree = cKDTree(card["pt"])
+        ok = [any(card["octave"][j] == cpu["octave"][i]
+                  and np.abs(card["desc"][j] - cpu["desc"][i]).max() <= 1
+                  for j in tree.query_ball_point(p, 1e-3))
+              for i, p in enumerate(cpu["pt"])]
+        assert np.mean(ok) >= 0.99
+    tree = cKDTree(pairs["cuda"])
+    shared = [len(tree.query_ball_point(p, 2e-3)) > 0 for p in pairs["cpu"]]
+    assert len(shared) > 100 and np.mean(shared) >= 0.95
