@@ -146,12 +146,18 @@ Phases, in order (any failure exits non-zero):
      0's votes of the three methods against the plain versions, as in phase
      12; recall and precision against the cluster printed, no limit),
      `apps.view_selection.main`, `apps.trellis_img2gs.main --proxy_dir`
-     (the 2DGS segmentation's object as a 3DGS proxy, as phase 12 builds
-     it; copied byte for byte), `apps.truncate_opacity.main` (the .bak, the
-     count kept at opacity >= 0.1), `apps.align_2dgs_clpe_9dof.align`
-     (ALIGN2D_ROUNDS rounds with an empty precomputed matcher: one K1, sort
-     and K4 per scene-object render, one K1, sort and K2 per proxy render;
-     the coarse init's centroid within 0.35 x the object's xyz std), and
+     (the object cluster as the scene object and as a 3DGS proxy, as phase
+     12 builds it; copied byte for byte), `apps.truncate_opacity.main` (the
+     .bak, the count kept at opacity >= 0.1),
+     `apps.align_2dgs_clpe_9dof.align` (ALIGN2D_ROUNDS rounds matched by
+     ORB on the card: one K1, sort and K4 per scene-object render, one K1,
+     sort and K2 per proxy render; per round the ORB calls, keypoints,
+     matches, lifted pairs, RANSAC calls and times, the centroid, scale and
+     rotation errors; a round lifts >= 3 pairs into a solver; the aligned
+     centroid within 0.35 x the object's xyz std), the ORB of the largest
+     crop pair on the card against the CPU (every keypoint, descriptor and
+     pair equal; ms per pair, device busy, ATen ops, host syncs, peak
+     memory), and
      `apps.extract_mesh.main` at its defaults (256^3 voxels, 8 train views:
      one K1, sort and K4 per view; the card's TSDF grid against tsdf_fuse
      on the CPU from the same depth and colour maps, weights equal, tsdf
@@ -2018,6 +2024,149 @@ def check_sift_card_vs_cpu(image1, image2, device) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def counting_align_rounds(align_app, features, match_owner, match_name: str, ref_xyz):
+    """Within the block, count each render-and-match round of `align_app`'s
+    `align`: the feature module's keypoints, the cross-checked matches of
+    `match_owner.<match_name>`, the pairs the matcher keeps, the pairs lifted
+    to 3D, the solver calls and seconds. Yields (rounds, current,
+    crop_pairs): round -> its counts; the matcher's class name and the
+    coarse init's centroid error against `ref_xyz`; (pixels, image1,
+    image2) of every matcher call."""
+    import torch
+
+    rounds, current, crop_pairs = {}, {}, []
+    names = ("get_matcher", "get_pcd_pair", "pc_align_ransac", "adam_algorithm_3d3d_9dof")
+    real = {name: getattr(align_app, name) for name in names}
+    real_detect, real_match = features.detect_and_compute, getattr(match_owner, match_name)
+
+    def round_log():
+        return rounds.setdefault(current["round"], {
+            "match_calls": 0, "keypoints": 0, "matches": 0, "kept": 0, "lifted": 0,
+            "ransac": 0, "adam": 0, "solver_s": 0.0})
+
+    def counting_detect(*a, **kw):
+        kp = real_detect(*a, **kw)
+        round_log()["keypoints"] += len(kp["size"])
+        return kp
+
+    def counting_match(*a, **kw):
+        out = real_match(*a, **kw)
+        log = round_log()
+        log["match_calls"] += 1
+        log["matches"] += len(out[0])
+        return out
+
+    def recording_matcher(*a, **kw):
+        matcher = real["get_matcher"](*a, **kw)
+        current["matcher"] = type(matcher).__name__
+
+        def call(image1, image2, **k2):
+            uv0, uv1 = matcher(image1, image2, **k2)
+            round_log()["kept"] += len(uv0)
+            crop_pairs.append((image1.size[0] * image1.size[1]
+                               + image2.size[0] * image2.size[1], image1, image2))
+            return uv0, uv1
+        return call
+
+    def recording_pcd_pair(gaussians, *a, **kw):
+        current["round"] = kw["iteration"]
+        round_log()
+        if "coarse_err" not in current:
+            current["coarse_err"] = float(np.linalg.norm(gaussians.xyz.mean(0)
+                                                         - ref_xyz.mean(0)))
+        pcd_o, pcd_r = real["get_pcd_pair"](gaussians, *a, **kw)
+        round_log()["lifted"] = len(pcd_o)
+        return pcd_o, pcd_r
+
+    def timed_solver(name, fn):
+        def solve(*a, **kw):
+            log = round_log()
+            log[name] += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            log["solver_s"] += time.perf_counter() - t
+            return out
+        return solve
+
+    patched = {"get_matcher": recording_matcher, "get_pcd_pair": recording_pcd_pair,
+               "pc_align_ransac": timed_solver("ransac", real["pc_align_ransac"]),
+               "adam_algorithm_3d3d_9dof": timed_solver("adam",
+                                                        real["adam_algorithm_3d3d_9dof"])}
+    for name in names:
+        setattr(align_app, name, patched[name])
+    features.detect_and_compute = counting_detect
+    setattr(match_owner, match_name, counting_match)
+    try:
+        yield rounds, current, crop_pairs
+    finally:
+        for name in names:
+            setattr(align_app, name, real[name])
+        features.detect_and_compute = real_detect
+        setattr(match_owner, match_name, real_match)
+
+
+def print_rounds(rounds: dict, label: str) -> None:
+    for it, log in sorted(rounds.items()):
+        print(f"    round {it}: {log['match_calls']} {label} calls, {log['keypoints']} "
+              f"keypoints, {log['matches']} cross-checked matches, {log['kept']} after the "
+              f"border filter and subsample, {log['lifted']} lifted; RANSAC calls "
+              f"{log['ransac']}, 9-DoF Adam calls {log['adam']}, solver {log['solver_s']:.3f} s")
+
+
+def check_orb_card_vs_cpu(image1, image2, device) -> dict:
+    """The port's ORB (pipeline/orb.py) on one crop pair of the alignment
+    (the masked object crop and the proxy render) on the card against the
+    CPU. Its arithmetic is integer up to the Harris score and the angle,
+    whose float32 steps are the same on both, so the bar is equality: every
+    keypoint field and descriptor, in order, and the cross-checked pairs;
+    then the card's ms per pair (CUDA events, median of 5), device busy
+    time, ATen ops, host syncs and peak memory."""
+    import torch
+
+    from scorp_tpu_torch.pipeline import orb, sift
+
+    grays = [sift.to_gray(image1), sift.to_gray(image2)]
+    shapes = [g.shape for g in grays]
+    kps = {dev.type: [orb.detect_and_compute(torch.as_tensor(g, device=dev)) for g in grays]
+           for dev in (device, torch.device("cpu"))}
+    out = {"shapes": [list(s) for s in shapes], "keypoints": []}
+    for i in range(2):
+        card, cpu = kps[device.type][i], kps["cpu"][i]
+        out["keypoints"].append(len(cpu["size"]))
+        same = all(torch.equal(card[k].cpu(), cpu[k]) for k in cpu)
+        check(same, f"ORB image {i} ({shapes[i][1]}x{shapes[i][0]}): the card's "
+              f"{len(card['size'])} keypoints (pt, size, angle, response, octave) and "
+              f"descriptors equal the CPU's {len(cpu['size'])}")
+    pairs = {dev: [v.cpu() for v in orb.cross_check_match_hamming(k[0]["desc"], k[1]["desc"])]
+             for dev, k in kps.items()}
+    out["pairs"] = len(pairs["cpu"][0])
+    check(out["pairs"] > 0 and all(torch.equal(a, b) for a, b in zip(pairs[device.type],
+                                                                       pairs["cpu"])),
+          f"ORB pairs: the card's {len(pairs[device.type][0])} cross-checked pairs (query, "
+          f"train, distance) equal the CPU's {out['pairs']}")
+    g0, g1 = (torch.as_tensor(g, device=device) for g in grays)
+    out["ms_per_pair"] = cuda_ms(lambda: orb.match_orb(g0, g1), 5)
+    out["host_syncs"] = counted_syncs(lambda: orb.match_orb(g0, g1))[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    orb.match_orb(g0, g1)
+    torch.cuda.synchronize()
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    out["busy_ms"], top = device_profile(lambda: orb.match_orb(g0, g1), 3)
+    out["ops"] = dispatched_ops(lambda: orb.match_orb(g0, g1))
+    print(f"  ORB of a crop pair ({shapes[0][1]}x{shapes[0][0]}, {shapes[1][1]}x{shapes[1][0]}):"
+          f" {out['ms_per_pair']:.3f} ms per pair on the card (CUDA events, median of 5), "
+          f"device busy {out['busy_ms']:.3f} ms, {out['ops']} ATen ops, {out['host_syncs']} "
+          f"host syncs, peak {out['peak_mib']:.1f} MiB above the {base / 2**20:.1f} MiB held "
+          "before")
+    for name, ms in top[:5]:
+        print(f"    {ms:8.3f} ms  {name}")
+    return out
+
+
 def phase_scorp(args, device):
     """Phase 12: the SCORP object path at full width through its entry
     points: segmentation_3dgs -> view_selection -> align (coarse init, then
@@ -2172,105 +2321,38 @@ def phase_scorp(args, device):
     #    and solves (RANSAC, the 9-DoF Adam in the last round)
     renders = [0]
     icp = {}
-    rounds = {}        # round -> its SIFT, match and solver counts
-    current = {}       # the round being run, the coarse init's centroid error
-    crop_pairs = []    # (pixels, image1, image2) of every matcher call
-    names = ("render", "best_icp_transform", "get_matcher", "get_pcd_pair",
-             "pc_align_ransac", "adam_algorithm_3d3d_9dof")
-    real = {name: getattr(align_app, name) for name in names}
-    real_detect, real_match = sift.detect_and_compute, matching.match_sift
-
-    def round_log():
-        return rounds.setdefault(current["round"], {
-            "sift_calls": 0, "keypoints": 0, "matches": 0, "kept": 0, "lifted": 0,
-            "ransac": 0, "adam": 0, "solver_s": 0.0})
+    real_render, real_icp = align_app.render, align_app.best_icp_transform
 
     def counting_render(*a, **kw):
         renders[0] += 1
-        return real["render"](*a, **kw)
+        return real_render(*a, **kw)
 
     def timed_icp(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        T, icp["syncs"] = counted_syncs(lambda: real["best_icp_transform"](*a, **kw))
+        T, icp["syncs"] = counted_syncs(lambda: real_icp(*a, **kw))
         icp["seconds"] = time.perf_counter() - t
         return T
 
-    def counting_detect(*a, **kw):
-        kp = real_detect(*a, **kw)
-        round_log()["keypoints"] += len(kp["size"])
-        return kp
-
-    def counting_match(*a, **kw):
-        out = real_match(*a, **kw)
-        log = round_log()
-        log["sift_calls"] += 1
-        log["matches"] += len(out[0])
-        return out
-
-    def recording_matcher(*a, **kw):
-        matcher = real["get_matcher"](*a, **kw)
-        current["matcher"] = type(matcher).__name__
-
-        def call(image1, image2, **k2):
-            uv0, uv1 = matcher(image1, image2, **k2)
-            round_log()["kept"] += len(uv0)
-            crop_pairs.append((image1.size[0] * image1.size[1]
-                               + image2.size[0] * image2.size[1], image1, image2))
-            return uv0, uv1
-        return call
-
-    def recording_pcd_pair(gaussians, *a, **kw):
-        current["round"] = kw["iteration"]
-        round_log()
-        if "coarse_err" not in current:
-            current["coarse_err"] = float(np.linalg.norm(gaussians.xyz.mean(0)
-                                                         - seg.xyz.mean(0)))
-        pcd_o, pcd_r = real["get_pcd_pair"](gaussians, *a, **kw)
-        round_log()["lifted"] = len(pcd_o)
-        return pcd_o, pcd_r
-
-    def timed_solver(name, fn):
-        def solve(*a, **kw):
-            log = round_log()
-            log[name] += 1
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            log["solver_s"] += time.perf_counter() - t
-            return out
-        return solve
-
-    patched = {"render": counting_render, "best_icp_transform": timed_icp,
-               "get_matcher": recording_matcher, "get_pcd_pair": recording_pcd_pair,
-               "pc_align_ransac": timed_solver("ransac", real["pc_align_ransac"]),
-               "adam_algorithm_3d3d_9dof": timed_solver("adam",
-                                                        real["adam_algorithm_3d3d_9dof"])}
-    for name in names:
-        setattr(align_app, name, patched[name])
-    sift.detect_and_compute, matching.match_sift = counting_detect, counting_match
+    align_app.render, align_app.best_icp_transform = counting_render, timed_icp
     reset_launches()
     t0 = time.perf_counter()
     try:
-        align_app.align(dataset, None, "obj", num_iterations=ALIGN_ROUNDS,
-                        opt_12dof_iterations=(ALIGN_ROUNDS - 1,),
-                        rotations_path=os.path.join(WORK, "rotation_matrices"),
-                        device=device)
+        with counting_align_rounds(align_app, sift, matching, "match_sift",
+                                   seg.xyz) as (rounds, current, crop_pairs):
+            align_app.align(dataset, None, "obj", num_iterations=ALIGN_ROUNDS,
+                            opt_12dof_iterations=(ALIGN_ROUNDS - 1,),
+                            rotations_path=os.path.join(WORK, "rotation_matrices"),
+                            device=device)
     finally:
-        for name in names:
-            setattr(align_app, name, real[name])
-        sift.detect_and_compute, matching.match_sift = real_detect, real_match
+        align_app.render, align_app.best_icp_transform = real_render, real_icp
     torch.cuda.synchronize()
     align_s = time.perf_counter() - t0
     launches["align"] = kernel_launches()
     print(f"  align ({current['matcher']}, {ALIGN_ROUNDS} rounds, the 9-DoF Adam in round "
           f"{ALIGN_ROUNDS - 1}): {align_s:.3f} s, {renders[0]} renders; ICP "
           f"{icp['seconds']:.3f} s with {icp['syncs']} host syncs; launches {launches['align']}")
-    for it, log in sorted(rounds.items()):
-        print(f"    round {it}: {log['sift_calls']} SIFT calls, {log['keypoints']} keypoints, "
-              f"{log['matches']} cross-checked matches, {log['kept']} after the border "
-              f"filter and subsample, {log['lifted']} lifted; RANSAC calls {log['ransac']}, "
-              f"9-DoF Adam calls {log['adam']}, solver {log['solver_s']:.3f} s")
+    print_rounds(rounds, "SIFT")
     check(current["matcher"] == "SIFTMatcher", "align's default matcher is the port's SIFT")
     check(launches["align"] == launches_of(expand=renders[0], sort=renders[0],
                                            composite=renders[0]),
@@ -2481,7 +2563,7 @@ def phase_scorp2d(args, device):
     from scorp_tpu_torch.apps import truncate_opacity, view_selection
     from scorp_tpu_torch.config import ModelParams
     from scorp_tpu_torch.core.plyio import GaussianData, load_gaussian_ply, save_gaussian_ply
-    from scorp_tpu_torch.pipeline import marching_cubes, mesh
+    from scorp_tpu_torch.pipeline import marching_cubes, matching, mesh, orb
     from scorp_tpu_torch.pipeline.gs_transform import (
         gaussians_rotate, gaussians_scale, gaussians_translate,
     )
@@ -2570,11 +2652,20 @@ def phase_scorp2d(args, device):
     check(1 <= len(crops) <= 3 and kernel_launches() == launches_of(),
           f"view selection wrote {len(crops)} crops and launched no kernel")
 
-    # 3. the proxy stages: the 2DGS segmentation's object as a 3DGS SH-0
+    # 3. the scene object and the proxy stages. As in phase 12, the crops
+    #    show the object (the cluster) alone while the segmentation also
+    #    selects the surfels in front of it (its precision, above, ~0.2):
+    #    with its selection as scene object and proxy the ORB rounds
+    #    diverged in a CPU rehearsal (the centroid error grew past the
+    #    check's limit). So the alignment's scene object (gs_seg/obj.ply) is
+    #    the cluster's surfels, and the proxy is the cluster as a 3DGS SH-0
     #    proxy (its second scale repeated as the third, as TRELLIS writes
     #    3DGS), scaled 0.6, rotated 0.5 rad about z, translated; copied by
     #    trellis_img2gs --proxy_dir, then truncated at opacity 0.1
-    seg = load_gaussian_ply(os.path.join(model_dir, "gs_seg", "obj.ply"), max_sh_degree=3)
+    seg = GaussianData(xyz=g.xyz[obj_mask], f_dc=g.f_dc[obj_mask], f_rest=g.f_rest[obj_mask],
+                       opacity=g.opacity[obj_mask], scaling=g.scaling[obj_mask],
+                       rotation=g.rotation[obj_mask])
+    save_gaussian_ply(os.path.join(model_dir, "gs_seg", "obj.ply"), seg)
     proxy = GaussianData(xyz=seg.xyz.copy(), f_dc=seg.f_dc.copy(),
                          f_rest=np.zeros((seg.n, 0, 3), np.float32), opacity=seg.opacity.copy(),
                          scaling=np.concatenate([seg.scaling, seg.scaling[:, 1:]], 1),
@@ -2601,11 +2692,10 @@ def phase_scorp2d(args, device):
     check(kernel_launches() == launches_of(), "the proxy stages launch no kernel")
     print(f"  proxy: {proxy.n} Gaussians, {want} kept at opacity >= 0.1, .bak written")
 
-    # 4. alignment with an empty precomputed matcher: the scene object's
-    #    depth renders through render2d (K1, K4), the proxy's through render
-    #    (K1, K2); every round keeps the coarse init
-    empty = os.path.join(WORK, "no_matches_2d")
-    os.makedirs(empty)
+    # 4. alignment with ORB on the card: each round renders the proxy per
+    #    train view through render (K1, K2), matches it against the masked
+    #    object crop (whose depth came from render2d: K1, K4) by ORB, lifts
+    #    the pairs through both depths and solves by RANSAC
     renders = {"scene": 0, "proxy": 0}
     real_scene_render, real_render = align2d_app._scene_render_2d, align_app.render
 
@@ -2621,31 +2711,58 @@ def phase_scorp2d(args, device):
     reset_launches()
     t0 = time.perf_counter()
     try:
-        align2d_app.align(dataset, None, "obj", num_iterations=ALIGN2D_ROUNDS,
-                          opt_12dof_iterations=(3, 4),
-                          rotations_path=os.path.join(WORK, "rotation_matrices"),
-                          matcher_backend="precomputed", matcher_kwargs={"directory": empty},
-                          device=device)
+        with counting_align_rounds(align_app, orb, matching, "match_orb",
+                                   seg.xyz) as (rounds, current, crop_pairs):
+            align2d_app.align(dataset, None, "obj", num_iterations=ALIGN2D_ROUNDS,
+                              opt_12dof_iterations=(3, 4),
+                              rotations_path=os.path.join(WORK, "rotation_matrices"),
+                              matcher_backend="orb", device=device)
     finally:
         align2d_app._scene_render_2d, align_app.render = real_scene_render, real_render
     torch.cuda.synchronize()
     align_s = time.perf_counter() - t0
     launches["align"] = kernel_launches()
     ns, npx = renders["scene"], renders["proxy"]
-    print(f"  align_2dgs: {align_s:.3f} s, {ns} scene-object renders (render2d), {npx} proxy "
-          f"renders (render); launches {launches['align']}")
+    print(f"  align_2dgs ({current['matcher']}, {ALIGN2D_ROUNDS} rounds): {align_s:.3f} s, "
+          f"{ns} scene-object renders (render2d), {npx} proxy renders (render); launches "
+          f"{launches['align']}")
+    print_rounds(rounds, "ORB")
+    check(current["matcher"] == "ORBMatcher", "align_2dgs' matcher is the port's ORB")
     n_seen = sum(bool(load_mask_rgba(os.path.join(scene_dir, "masked_image_rgba", "obj",
                                                   hc.image_name + ".png")).any())
                  for hc in scene.get_train_cameras())
     check(ns == n_seen and npx > 0 and launches["align"] == launches_of(
         expand=ns + npx, sort=ns + npx, surfel_composite=ns, composite=npx),
         f"one K1, sort and K4 per scene-object render (one per train view that sees the "
-        f"object: {n_seen}), one K1, sort and K2 per proxy render")
+        f"object: {n_seen}), one K1, sort and K2 per proxy render ({npx})")
+    solved = [it for it, log in sorted(rounds.items())
+              if log["lifted"] >= 3 and log["ransac"] + log["adam"] > 0]
+    check(len(solved) >= 1, f"rounds {solved} lifted >= 3 ORB correspondences into "
+          "pc_align_ransac or the 9-DoF Adam")
+    extent = float(seg.xyz.std())
+    # the transform the rounds applied so far: the least-squares affine map
+    # from the truncated proxy as written to the aligned one, split into
+    # rotation x scale (the true one: 1/0.6 and -0.5 rad about z)
+    src = proxy.xyz[1.0 / (1.0 + np.exp(-proxy.opacity[:, 0])) >= 0.1]
+    src = np.concatenate([src, np.ones((len(src), 1))], 1).astype(np.float64)
+    for it in sorted(rounds):
+        g_it = load_gaussian_ply(os.path.join(model_dir, "generated_aligned", f"obj_{it}.ply"))
+        affine = np.linalg.lstsq(src, g_it.xyz.astype(np.float64), rcond=None)[0][:3].T
+        u, sv, vt = np.linalg.svd(affine)
+        rounds[it].update(
+            centroid_err=float(np.linalg.norm(g_it.xyz.mean(0) - seg.xyz.mean(0))),
+            scale=float(np.cbrt(np.prod(sv))),
+            rot_err=float(np.arccos(np.clip((np.trace(u @ vt @ rz) - 1) / 2, -1, 1))))
+        print(f"    after round {it}: centroid error {rounds[it]['centroid_err']:.4f}, scale "
+              f"{rounds[it]['scale']:.4f} (true {1 / 0.6:.4f}), rotation error "
+              f"{rounds[it]['rot_err']:.4f} rad")
     aligned = load_gaussian_ply(os.path.join(model_dir, "generated_aligned", "obj.ply"))
     c_err = float(np.linalg.norm(aligned.xyz.mean(0) - seg.xyz.mean(0)))
-    extent = float(seg.xyz.std())
-    check(c_err < 0.35 * extent, f"the coarse init brings the proxy's centroid within "
-          f"0.35 x the object's xyz std ({c_err:.4f} < 0.35 x {extent:.4f})")
+    print(f"  centroid error: coarse init {current['coarse_err']:.4f}, after the rounds "
+          f"{c_err:.4f} (object xyz std {extent:.4f})")
+    check(c_err < 0.35 * extent, f"the aligned proxy's centroid is within 0.35 x the "
+          f"object's xyz std ({c_err:.4f} < 0.35 x {extent:.4f})")
+    orb_card = check_orb_card_vs_cpu(*max(crop_pairs, key=lambda p: p[0])[1:], device)
 
     # 5. mesh extraction at extract_mesh's defaults (bounded, mesh_res 256)
     times = {"render_s": 0.0}
@@ -2728,8 +2845,11 @@ def phase_scorp2d(args, device):
     return scorp2d, launches["mesh"], {
         "launches_by_stage": launches, "vote_ms": vote_ms, "vote_err": vote_errs,
         "seg_vote_err": seg_err, "selected": int(sel.sum()), "recall": recall,
-        "precision": precision, "align_s": align_s, "renders": renders, "mesh_s": mesh_s,
-        **times, "grid": grid, "peak_mib": peak_mib, "mesh_counts": counts, "wall_s": wall,
+        "precision": precision, "align_s": align_s, "renders": renders,
+        "align_rounds": {str(k): v for k, v in sorted(rounds.items())},
+        "align_centroid_err": [current["coarse_err"], c_err], "orb": orb_card,
+        "mesh_s": mesh_s, **times, "grid": grid, "peak_mib": peak_mib, "mesh_counts": counts,
+        "wall_s": wall,
     }
 
 

@@ -7,8 +7,8 @@ this port has:
   * "precomputed": loads matches from .npz files on disk;
   * "sift": OpenCV's SIFT and cross-checked brute-force matching, computed
     in PyTorch on the alignment's device without cv2 (pipeline/sift.py);
-  * "orb": classical reciprocal matching via cv2, imported when the matcher
-    is made (never at module import, so no other backend needs cv2);
+  * "orb": OpenCV's ORB and cross-checked Hamming matching, computed in
+    PyTorch on the alignment's device without cv2 (pipeline/orb.py);
   * "mast3r": not ported; it needs the MASt3R checkpoint, which the
     repository does not ship, and raises naming it.
 
@@ -26,6 +26,7 @@ import torch
 from PIL import Image
 
 from ..device import resolve_device
+from .orb import match_orb
 from .sift import match_sift, to_gray
 
 
@@ -49,9 +50,9 @@ def _postprocess(uv0, uv1, shape0, shape1, size0, size1, n_points: int):
     return uv0, uv1
 
 
-class SIFTMatcher:
-    """The "sift" backend: the JAX package's cv2 SIFT (4096 features) with
-    cross-checked L2 matching, in PyTorch on `device` (pipeline/sift.py)."""
+class _ClassicalMatcher:
+    """A classical backend in PyTorch on `device`: grey images, the
+    cross-checked matches of `_match`, then the shared post-processing."""
 
     def __init__(self, n_features: int = 4096, device: str | torch.device = "cuda"):
         self.n_features = n_features
@@ -60,7 +61,7 @@ class SIFTMatcher:
     def __call__(self, image1: Image.Image, image2: Image.Image,
                  n_points_per_cam: int = 100, **_):
         a1, a2 = to_gray(image1), to_gray(image2)
-        uv0, uv1, _ = match_sift(a1, a2, self.n_features, device=self.device)
+        uv0, uv1, _ = self._match(a1, a2)
         if len(uv0) == 0:
             return np.zeros((0, 2), int), np.zeros((0, 2), int)
         return _postprocess(
@@ -69,38 +70,20 @@ class SIFTMatcher:
         )
 
 
-class CV2Matcher:
-    """The "orb" backend: cv2's ORB with cross-checked Hamming matching."""
+class SIFTMatcher(_ClassicalMatcher):
+    """The "sift" backend: the JAX package's cv2 SIFT (4096 features) with
+    cross-checked L2 matching, in PyTorch on `device` (pipeline/sift.py)."""
 
-    def __init__(self, n_features: int = 4096):
-        try:
-            import cv2
-        except ImportError as e:
-            raise ImportError("the orb matcher needs cv2, which is not installed; use "
-                              "--matcher sift or precomputed") from e
+    def _match(self, a1, a2):
+        return match_sift(a1, a2, self.n_features, device=self.device)
 
-        self._cv2 = cv2
-        self.det = cv2.ORB_create(nfeatures=n_features)
-        self.norm = cv2.NORM_HAMMING
 
-    def __call__(self, image1: Image.Image, image2: Image.Image,
-                 n_points_per_cam: int = 100, **_):
-        cv2 = self._cv2
-        a1 = cv2.cvtColor(np.array(image1.convert("RGB")), cv2.COLOR_RGB2GRAY)
-        a2 = cv2.cvtColor(np.array(image2.convert("RGB")), cv2.COLOR_RGB2GRAY)
-        k1, d1 = self.det.detectAndCompute(a1, None)
-        k2, d2 = self.det.detectAndCompute(a2, None)
-        if d1 is None or d2 is None or len(k1) < 4 or len(k2) < 4:
-            return np.zeros((0, 2), int), np.zeros((0, 2), int)
-        matcher = cv2.BFMatcher(self.norm, crossCheck=True)  # reciprocal NN
-        matches = sorted(matcher.match(d1, d2), key=lambda m: m.distance)
-        uv0 = np.array([k1[m.queryIdx].pt for m in matches])
-        uv1 = np.array([k2[m.trainIdx].pt for m in matches])
-        if len(uv0) == 0:
-            return np.zeros((0, 2), int), np.zeros((0, 2), int)
-        return _postprocess(
-            uv0, uv1, a1.shape, a2.shape, image1.size, image2.size, n_points_per_cam
-        )
+class ORBMatcher(_ClassicalMatcher):
+    """The "orb" backend: the JAX package's cv2 ORB (4096 features) with
+    cross-checked Hamming matching, in PyTorch on `device` (pipeline/orb.py)."""
+
+    def _match(self, a1, a2):
+        return match_orb(a1, a2, self.n_features, device=self.device)
 
 
 class PrecomputedMatcher:
@@ -139,7 +122,7 @@ class MASt3RMatcher:
 
 def get_matcher(backend: str = "auto", device: str | torch.device = "cuda", **kwargs):
     """Factory: auto prefers MASt3R when its checkpoint exists, else SIFT.
-    `device` goes to the backends that compute on one (sift, mast3r)."""
+    `device` goes to the backends that compute on one (sift, orb, mast3r)."""
     if backend == "auto":
         backend = "mast3r" if os.path.exists(MASt3RMatcher.CKPT) else "sift"
     if backend == "mast3r":
@@ -148,4 +131,4 @@ def get_matcher(backend: str = "auto", device: str | torch.device = "cuda", **kw
         return SIFTMatcher(device=device, **kwargs)
     if backend == "precomputed":
         return PrecomputedMatcher(**kwargs)
-    return CV2Matcher(**kwargs)
+    return ORBMatcher(device=device, **kwargs)

@@ -657,18 +657,25 @@ def detect_and_compute(gray: torch.Tensor, n_features: int = 4096) -> dict:
     return kp
 
 
+def mutual_nearest(dist: torch.Tensor):
+    """(query, train) of every query whose nearest train (in the [N0, N1]
+    distances) has it as its own nearest query, ties to the lowest index,
+    in query order: BFMatcher's cross-check."""
+    nearest_train = dist.argmin(1)
+    nearest_query = dist.argmin(0)
+    mutual = nearest_query[nearest_train] == torch.arange(len(dist), device=dist.device)
+    q = mutual.nonzero()[:, 0]
+    return q, nearest_train[q]
+
+
 def cross_check_match(d0: torch.Tensor, d1: torch.Tensor):
     """BFMatcher(NORM_L2, crossCheck=True).match, sorted by distance as
     `sorted(..., key=distance)` sorts it: (query, train, distance) of every
-    query whose nearest train has it as its own nearest query, ties to the
-    lowest index. The squared distances are integers < 2^24 (entries
-    0..255, 128 of them), exact in float64."""
+    mutual nearest pair (`mutual_nearest`). The squared distances are
+    integers < 2^24 (entries 0..255, 128 of them), exact in float64."""
     a, b = d0.double(), d1.double()
     sq = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2.0 * (a @ b.T)
-    nearest_train = sq.argmin(1)
-    nearest_query = sq.argmin(0)
-    q = (nearest_query[nearest_train] == torch.arange(len(a), device=a.device)).nonzero()[:, 0]
-    t = nearest_train[q]
+    q, t = mutual_nearest(sq)
     dist = torch.sqrt(sq[q, t]).to(torch.float32)
     order = torch.sort(dist, stable=True).indices
     return q[order], t[order], dist[order]

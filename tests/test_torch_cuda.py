@@ -754,3 +754,28 @@ def test_sift_on_the_card_equals_the_cpu(dev):
     tree = cKDTree(pairs["cuda"])
     shared = [len(tree.query_ball_point(p, 2e-3)) > 0 for p in pairs["cpu"]]
     assert len(shared) > 100 and np.mean(shared) >= 0.95
+
+
+def test_orb_on_the_card_equals_the_cpu(dev):
+    """ORB keypoints (every field, in order), descriptors and cross-checked
+    pairs on the card equal the CPU's, on a 640x480 high-contrast texture
+    (every level's cap biting) and a shifted copy."""
+    from scipy import ndimage
+
+    from scorp_tpu_torch.pipeline import orb
+
+    a = ndimage.gaussian_filter(np.random.default_rng(2).uniform(0, 1, (480, 640)), 1.5)
+    img = ((a > np.median(a)) * 200 + 30).astype(np.uint8)
+    images = (img, np.roll(img, (5, 9), axis=(0, 1)))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        k = [orb.detect_and_compute(torch.as_tensor(g, device=d)) for g in images]
+        out[d.type] = (k, orb.cross_check_match_hamming(k[0]["desc"], k[1]["desc"]))
+    (k_cpu, p_cpu), (k_card, p_card) = out["cpu"], out["cuda"]
+    for cpu, card in zip(k_cpu, k_card):
+        assert len(cpu["size"]) >= 4096  # ties at the boundary response are kept
+        for key in cpu:
+            assert torch.equal(card[key].cpu(), cpu[key]), key
+    assert len(p_cpu[0]) > 100
+    for a, b in zip(p_card, p_cpu):
+        assert torch.equal(a.cpu(), b)

@@ -203,8 +203,8 @@ def test_matches_match_cv2_matcher(monkeypatch):
 
 def test_sift_matcher_runs_without_cv2(monkeypatch, tmp_path):
     """get_matcher("sift") and "auto" (no MASt3R checkpoint) give the
-    SIFTMatcher on the asked device and match with cv2 unimportable; "orb"
-    then raises an ImportError naming the other backends."""
+    SIFTMatcher on the asked device and match with cv2 unimportable; so
+    does "orb" with the ORBMatcher."""
     img = smooth_texture(120, 160, 11, sigma=2.0)
     shifted = np.roll(img, (4, 6), axis=(0, 1))
     monkeypatch.setitem(sys.modules, "cv2", None)
@@ -217,5 +217,25 @@ def test_sift_matcher_runs_without_cv2(monkeypatch, tmp_path):
     assert np.issubdtype(uv0.dtype, np.integer)
     # a circular shift: most pairs are displaced by (6, 4) px
     assert np.mean(np.abs(uv1 - uv0 - [6, 4]).max(1) <= 1) >= 0.8
-    with pytest.raises(ImportError, match="sift or precomputed"):
-        tmatching.get_matcher("orb")
+    m = tmatching.get_matcher("orb", device="cpu")
+    assert isinstance(m, tmatching.ORBMatcher) and m.device == torch.device("cpu")
+    uv0, uv1 = m(_rgb(img), _rgb(shifted), n_points_per_cam=16)
+    assert uv0.shape == uv1.shape and 0 < len(uv0) <= 16
+    assert np.issubdtype(uv0.dtype, np.integer)
+    assert np.mean(np.abs(uv1 - uv0 - [6, 4]).max(1) <= 1) >= 0.8
+
+
+def test_sift_matcher_picks_equal_jax_on_synth_views(images):
+    """SIFTMatcher's picks equal the JAX package's CV2Matcher("sift")'s on
+    tests/synth.py's 8 views at 320x240, view i against view i + 1 (the
+    last against the first), n_points_per_cam=16."""
+    views = [_rgb(g) for g in images["synth_render"]]
+    ours = tmatching.SIFTMatcher(device="cpu")
+    theirs = jmatching.CV2Matcher("sift")
+    for i in range(len(views)):
+        j = (i + 1) % len(views)
+        ref = theirs(views[i], views[j], n_points_per_cam=16)
+        got = ours(views[i], views[j], n_points_per_cam=16)
+        assert len(ref[0]) >= 4
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b, err_msg=f"views {i}, {j}")
