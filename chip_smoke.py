@@ -187,6 +187,25 @@ Phases, in order (any failure exits non-zero):
      blocked, each alpha equal to the 5x5-ellipse open-then-close of its
      mask. The multi-rank all-reduce needs several cards; the CPU tests hold
      it on gloo ranks (`tests/test_torch_parallel.py`).
+  15. long training (`phase_long_training`) on the densification run's
+     scene at its own widths (96 views at 800x600, 200k GT gaussians, an
+     8k-point init; only the depth is cut): the dataset built on the card
+     by `runs.densify_scale_run.build_dataset` (one K1, sort and K2 per
+     render, no key dropped in any written image, the card's gaussians
+     bit-equal to the CPU's generator; the views that the JAX scripts' 2^21
+     key slots would cut are counted); `runs.densify_scale_run.main --pilot
+     --grad_threshold 1e-4` (3,000 iterations; finite losses, parameters,
+     moments and PLY; 25 densify rounds from 600 with no candidate dropped;
+     a Gaussian-capacity growth and a raster regrow; training key drops only
+     on iterations followed by their regrow; no evaluation key dropped; the
+     SH degree at 3; the opacity reset at 3,000; test PSNR at 3,000 >=
+     LONG_PSNR_3K_DB, and the saved PLY re-rendered through `render` on the
+     test views within 0.01 dB of it); LONG_PROFILED_STEPS `train_step`s at
+     the final state (wall, device busy share); and `apps.train_2dgs` for
+     LONG_2DGS_ITERS iterations at its defaults (the same checks but PSNR,
+     and each densify round printed). Each stage's launches are held to
+     its own tally (steps, evaluation renders, GT renders, re-renders,
+     profiled steps).
 The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
@@ -196,7 +215,8 @@ K1, K2 and K4-K6 with theirs in phase 13's object stages
 (`launches_scorp2d`), K1 and K4 with theirs in its mesh extraction
 (`launches_mesh`), and every kernel with its launches on phase 14's main
 path (`launches_dp`) and, apart, in that phase's checks
-(`launches_dp_checks`).
+(`launches_dp_checks`), and each kernel's launches in each stage of phase 15
+(`launches_long`).
 K1's entry also holds its key width, the key sort's device time
 per call (`sort_ms`; `sort_int64_torch_ms` for torch.sort of the keys as
 int64, the earlier route), torch.sort's on the same keys as `library_ms`,
@@ -3368,6 +3388,214 @@ def phase_dp(args, device):
     return main_path, out
 
 
+LONG_2DGS_ITERS = 1000  # phase 15's 2DGS run: densify rounds at 600-1000
+LONG_PROFILED_STEPS = 20  # train_step calls timed and traced at the pilot's final state
+# the JAX densification run's test PSNR at 3,000 (BASELINE.md:113, run 1,
+# --grad_threshold 1e-4) less a margin for the split samples and rounding
+# that differ between the packages
+LONG_PSNR_3K_DB = 23.79 - 0.5
+
+
+def check_long_run(log, state, adam, iters: int, label: str) -> None:
+    """Phase 15's checks on a long run's log and final state: finite losses,
+    parameters and moments; no densify candidate dropped; a training key
+    drop only on an iteration followed by its raster regrow, and none at
+    the end; no key dropped in the evaluations."""
+    import torch
+
+    losses = log["loss"]
+    check(len(losses) == iters and all(np.isfinite(losses)),
+          f"{label}: all {iters} losses finite")
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values())
+          and all(bool(torch.isfinite(v).all()) for v in (*adam.m.values(), *adam.v.values())),
+          f"{label}: no NaN or inf in the final parameters and moments")
+    check(all(r[4] == 0 for r in log["densify"]),
+          f"{label}: no densify candidate dropped in {len(log['densify'])} rounds")
+    drops = [i + 1 for i, d in enumerate(log["dropped_keys"]) if d]
+    check(drops == [r[0] for r in log["raster_keys"]] and log["dropped_keys"][-1] == 0,
+          f"{label}: training dropped keys only at iterations {drops}, each followed by "
+          f"its raster regrow {log['raster_keys']}")
+    check(len(log["eval_dropped_keys"]) > 0 and all(d == 0 for _, d in log["eval_dropped_keys"]),
+          f"{label}: no key dropped in the evaluations {log['eval_dropped_keys']}")
+
+
+def phase_long_training(args, device):
+    """Phase 15: the long training runs on the densification run's scene at
+    its own widths (96 views at 800x600, 200k GT Gaussians, 8k-point init):
+    (a) the dataset built on the card, (b) `runs.densify_scale_run.main
+    --pilot --grad_threshold 1e-4` (3,000 iterations, 25 densify rounds,
+    the opacity reset at 3,000), the saved PLY re-rendered and 20 steps
+    profiled at the final state, (c) `apps.train_2dgs` for
+    LONG_2DGS_ITERS iterations at its defaults. Launches of each stage are
+    held against the phase's own tally."""
+    import torch
+
+    from scorp_tpu_torch.apps import train_2dgs
+    from scorp_tpu_torch.core.plyio import load_gaussian_ply
+    from scorp_tpu_torch.ops.raster import RasterConfig
+    from scorp_tpu_torch.render import render, tuned_raster_config
+    from scorp_tpu_torch.runs import densify_scale_run
+    from scorp_tpu_torch.runs.convergence_run import JAX_GT_MAX_KEYS
+    from scorp_tpu_torch.runs.summary import final_ply
+    from scorp_tpu_torch.train import OptParams, train_step
+
+    root = os.path.join(WORK, "long")
+    scene_dir = os.path.join(root, "scene")
+    iters = densify_scale_run.PILOT_ITERS
+    out, launches = {}, {}
+    t_phase = time.perf_counter()
+
+    # (a) the dataset, its ground truth rendered on the card
+    reset_launches()
+    info = densify_scale_run.build_dataset(scene_dir, device=device)
+    launches["gt"] = kernel_launches()
+    n_views, renders = info["views"], info["renders"]
+    check(launches["gt"] == launches_of(expand=renders, sort=renders, composite=renders)
+          and renders >= n_views, f"{n_views} GT views in {renders} renders, one K1, sort and "
+          "K2 each")
+    check(all(d == 0 for d in info["dropped_final"]),
+          f"every GT image rendered with no dropped key (views dropping keys at the JAX "
+          f"scripts' {JAX_GT_MAX_KEYS} key slots: "
+          f"{sum(d > 0 for d in info['dropped_at_jax_capacity'])})")
+    g = densify_scale_run.make_textured_gaussians()
+    gt_state = info.pop("state")
+    check(int(gt_state.num_alive()) == g.n and all(
+        torch.equal(gt_state.params[k][:g.n].cpu(), torch.from_numpy(getattr(g, k)))
+        for k in gt_state.params), f"the card's {g.n} GT gaussians are bit-equal to the "
+        "CPU's make_textured_gaussians")
+    del gt_state, g
+    out["build_s"] = info["seconds"]
+    print(f"  dataset built in {info['seconds']:.2f} s ({n_views} views at 800x600; key "
+          f"slots {info['max_keys']})")
+
+    # (b) the 3DGS pilot through the run's entry point
+    reset_launches()
+    summary, (scene, state, adam, log) = densify_scale_run.main(
+        [root, "--pilot", "--grad_threshold", "1e-4", "--device", str(device)])
+    launches["pilot"] = kernel_launches()
+    n_eval = len(scene.get_test_cameras()) + 5  # evaluate's test views and 5 train views
+    check(launches["pilot"] == launches_of(expand=iters + n_eval, sort=iters + n_eval,
+                                           composite=iters + n_eval, backward=iters),
+          f"the pilot launched K1, the sort and K2 once per step and evaluation render "
+          f"({iters} + {n_eval}) and K3 once per step: {launches['pilot']}")
+    check_long_run(log, state, adam, iters, "3DGS pilot")
+    rounds = log["densify"]
+    check([r[0] for r in rounds] == list(range(600, iters + 1, 100)),
+          f"{len(rounds)} densify rounds, every 100 iterations from 600 to {iters}")
+    check(len(log["capacity"]) >= 1 and len(log["raster_keys"]) >= 1,
+          f"Gaussian capacity grew {log['capacity']} and the raster key capacity "
+          f"{log['raster_keys']}")
+    alive = state.alive
+    check(float(torch.sigmoid(state.params["opacity"][alive]).max()) <= 0.01 + 1e-6,
+          f"the opacity reset at {iters} ran (every alive opacity <= 0.01)")
+    check(log["sh_degree"] == [(1000, 1), (2000, 2), (3000, 3)],
+          f"the SH degree stepped to 3: {log['sh_degree']}")
+    check(summary["nonfinite_rows"] == dict.fromkeys(summary["nonfinite_rows"], 0),
+          f"the iteration-{iters} PLY has no non-finite row ({summary['final_alive']} rows)")
+    (it, res), = log["eval"]
+    test_l1, test_psnr = res["test"]
+    check(it == iters and test_psnr >= LONG_PSNR_3K_DB,
+          f"test PSNR at {iters}: {test_psnr:.4f} dB >= {LONG_PSNR_3K_DB:.2f} dB (JAX: 23.79)")
+
+    # the saved PLY re-rendered on the test views reproduces the logged PSNR
+    reset_launches()
+    ply = load_gaussian_ply(final_ply(os.path.join(root, "model"), iters))
+    bg = torch.zeros(3, device=device)
+    psnrs, rerender_dropped = [], 0
+    with torch.no_grad():
+        for cam in scene.get_test_cameras():
+            r = render(cam.to_torch(device), ply, bg)
+            rerender_dropped += int(r["num_dropped_keys"])
+            img = np.clip(r["render"].cpu().numpy(), 0.0, 1.0)
+            gt = np.clip(cam.gt(release=True).image, 0.0, 1.0)
+            psnrs.append(-10.0 * np.log10(max(float(((img - gt) ** 2).mean()), 1e-12)))
+    n_test = len(psnrs)
+    launches["rerender"] = kernel_launches()
+    check(launches["rerender"] == launches_of(expand=n_test, sort=n_test, composite=n_test),
+          f"{n_test} re-renders, one K1, sort and K2 each")
+    check(rerender_dropped == 0 and abs(float(np.mean(psnrs)) - test_psnr) <= 0.01,
+          f"the PLY re-rendered on the {n_test} test views: PSNR {np.mean(psnrs):.4f} dB, "
+          f"within 0.01 dB of the logged {test_psnr:.4f}, no key dropped")
+
+    # LONG_PROFILED_STEPS steps at the final state: wall and device busy
+    cam = scene.get_train_cameras()[0]
+    gt_img = torch.as_tensor(cam.gt().image, device=device)
+    h, w = gt_img.shape[1:]
+    zeros = torch.zeros(1, h, w, device=device)
+    cfg = (RasterConfig(max_keys=log["raster_keys"][-1][1], stream_keys=log["raster_keys"][-1][2])
+           if log["raster_keys"] else tuned_raster_config(state.capacity))
+    opt = OptParams(densify_grad_threshold=1e-4)
+    tcam = cam.to_torch(device)
+
+    def step():
+        return train_step(state, adam, tcam, gt_img, zeros, zeros, iters, bg, opt=opt,
+                          sh_degree=3, cfg=cfg)
+
+    reset_launches()
+    step_ms = cuda_ms(step, LONG_PROFILED_STEPS)
+    busy_ms, top = device_profile(step, LONG_PROFILED_STEPS)
+    launches["profiled"] = kernel_launches()
+    n_prof = 2 * (LONG_PROFILED_STEPS + 1)
+    check(launches["profiled"] == launches_of(expand=n_prof, sort=n_prof, composite=n_prof,
+                                              backward=n_prof),
+          f"{n_prof} profiled steps, one K1, sort, K2 and K3 each")
+    print(f"  3DGS pilot: wall {summary['wall_s']:.2f} s, {1e3 * summary['wall_s'] / iters:.3f} "
+          f"ms per iteration, {summary['it_per_s']:.3f} it/s; peak device memory "
+          f"{summary['peak_device_mib']:.1f} MiB; test L1 {test_l1:.5f}, PSNR {test_psnr:.4f}; "
+          f"train PSNR {res['train'][1]:.4f}; final {summary['final_alive']}, peak "
+          f"{summary['peak_alive']} alive")
+    print(f"  densify rounds (iteration, alive before, candidates, alive after, dropped): "
+          f"{json.dumps(rounds)}")
+    if top:
+        print(f"  at the final state ({int(state.num_alive())} alive, capacity {state.capacity}): "
+              f"train_step {step_ms:.3f} ms (CUDA-event median of {LONG_PROFILED_STEPS}), "
+              f"device busy {busy_ms:.3f} ms -> busy share {busy_ms / step_ms:.3f}")
+    else:
+        print("  device busy per step: not measured (the trace held no CUDA events)")
+    out["pilot"] = {k: summary[k] for k in (
+        "wall_s", "it_per_s", "final_alive", "peak_alive", "capacity_growths",
+        "raster_regrows", "dropped_keys_train", "dropped_keys_eval", "peak_device_mib")}
+    out["pilot"].update(test_psnr=test_psnr, train_psnr=res["train"][1],
+                        ms_per_iter=1e3 * summary["wall_s"] / iters, step_ms=step_ms,
+                        busy_ms=busy_ms if top else None, rerender_psnr=float(np.mean(psnrs)))
+    del scene, state, adam, log, ply
+    torch.cuda.empty_cache()
+
+    # (c) 2DGS at the app's defaults on the same scene
+    iters2d = LONG_2DGS_ITERS
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scene, state, adam, log = train_2dgs.main(
+        ["-s", scene_dir, "-m", os.path.join(root, "model2d"), "--eval", "--split_yml_name",
+         "split.yml", "--iterations", str(iters2d), "--test_iterations", str(iters2d),
+         "--save_iterations", str(iters2d), "--quiet", "--device", str(device)])
+    torch.cuda.synchronize()
+    wall2d = time.perf_counter() - t0
+    launches["2dgs"] = kernel_launches()
+    check(launches["2dgs"] == launches_of(
+        expand=iters2d + n_eval, sort=iters2d + n_eval, surfel_composite=n_eval,
+        surfel_composite_train=iters2d, surfel_backward=iters2d),
+          f"2DGS: K1 and the sort once per step and evaluation render ({iters2d} + {n_eval}), "
+          f"K5 and K6 once per step, K4 once per evaluation render: {launches['2dgs']}")
+    check_long_run(log, state, adam, iters2d, "2DGS")
+    (_, res2d), = log["eval"]
+    print(f"  2DGS: wall {wall2d:.2f} s, {1e3 * wall2d / iters2d:.3f} ms per iteration; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; test PSNR "
+          f"{res2d['test'][1]:.4f}, train PSNR {res2d['train'][1]:.4f}; "
+          f"{int(state.num_alive())} alive; capacity {log['capacity']}; raster regrows "
+          f"{log['raster_keys']}")
+    print(f"  2DGS densify rounds (iteration, alive before, candidates, alive after, "
+          f"dropped): {json.dumps(log['densify'])}")
+    out["2dgs"] = {"wall_s": wall2d, "ms_per_iter": 1e3 * wall2d / iters2d,
+                   "test_psnr": res2d["test"][1], "densify": log["densify"],
+                   "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    del scene, state, adam, log
+    shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase wall {out['wall_s']:.2f} s")
+    return launches, out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3503,6 +3731,18 @@ def main(argv=None) -> int:
     print(f"  scale-out: {json.dumps(dp)}")
     shutil.rmtree(WORK, ignore_errors=True)
     shutil.rmtree(METRICS, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    print("[15] long training on the densification run's scene (96 views at 800x600, 200k GT "
+          "gaussians, 8k-point init): the dataset on the card, the 3DGS pilot through "
+          "runs.densify_scale_run (3,000 iterations, --grad_threshold 1e-4), 2DGS through "
+          f"train_2dgs ({LONG_2DGS_ITERS} iterations)")
+    long_launches, long_run = phase_long_training(args, device)
+    print(f"  long training: {json.dumps(long_run)}")
+    shutil.rmtree(WORK, ignore_errors=True)
+
+    def long(key):
+        return {stage: n[key] for stage, n in long_launches.items()}
 
     def timed(d):
         return {k: d[k] for k in ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by")}
@@ -3524,7 +3764,8 @@ def main(argv=None) -> int:
          "launches_scorp": scorp_launches["expand"],
          "launches_scorp2d": scorp2d_launches["expand"], "launches_mesh": mesh_launches["expand"],
          "launches_dp": dp_launches["expand"], "sort_launches_dp": dp_launches["sort"],
-         "launches_dp_checks": dp["check_launches"]["expand"]},
+         "launches_dp_checks": dp["check_launches"]["expand"],
+         "launches_long": long("expand")},
         {"name": "K2 composite", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train_launches["composite"],
          "launches_eval": launches["composite"],
@@ -3534,14 +3775,16 @@ def main(argv=None) -> int:
          "launches_scorp": scorp_launches["composite"],
          "launches_scorp2d": scorp2d_launches["composite"],
          "launches_dp": dp_launches["composite"],
-         "launches_dp_checks": dp["check_launches"]["composite"]},
+         "launches_dp_checks": dp["check_launches"]["composite"],
+         "launches_long": long("composite")},
         {"name": "K3 composite_backward", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train_launches["backward"],
          "max_abs_err": k3_err, **timed(step["k3"]),
          "library_ms": None, "slots": step["k3"]["slots"], "atomics": step["k3"]["atomics"],
          "launches_scorp": scorp_launches["backward"],
          "launches_dp": dp_launches["backward"],
-         "launches_dp_checks": dp["check_launches"]["backward"]},
+         "launches_dp_checks": dp["check_launches"]["backward"],
+         "launches_long": long("backward")},
         {"name": "K4 surfel_composite", "route": "cuda", "source": SK_SOURCE,
          "replaces": K4_REPLACES, "launches": launches2d["surfel_composite"],
          "launches_2dgs_train_evals": train2d_launches["surfel_composite"],
@@ -3549,14 +3792,16 @@ def main(argv=None) -> int:
          "launches_scorp2d": scorp2d_launches["surfel_composite"],
          "launches_mesh": mesh_launches["surfel_composite"],
          "launches_dp": dp_launches["surfel_composite"],
-         "launches_dp_checks": dp["check_launches"]["surfel_composite"]},
+         "launches_dp_checks": dp["check_launches"]["surfel_composite"],
+         "launches_long": long("surfel_composite")},
         {"name": "K5 surfel_composite_train", "route": "cuda", "source": SK_SOURCE,
          "replaces": K5_REPLACES, "launches": train2d_launches["surfel_composite_train"],
          "max_abs_err": k5_err, **timed(step2d["k5"]), "library_ms": None,
          "slots": step2d["slots"]["K5"],
          "launches_scorp2d": scorp2d_launches["surfel_composite_train"],
          "launches_dp": dp_launches["surfel_composite_train"],
-         "launches_dp_checks": dp["check_launches"]["surfel_composite_train"]},
+         "launches_dp_checks": dp["check_launches"]["surfel_composite_train"],
+         "launches_long": long("surfel_composite_train")},
         {"name": "K6 surfel_backward", "route": "cuda", "source": K6_SOURCE,
          "replaces": K6_REPLACES, "launches": train2d_launches["surfel_backward"],
          "max_abs_err": k6_err[0], "max_rel_err_per_column": k6_err[1],
@@ -3564,7 +3809,8 @@ def main(argv=None) -> int:
          "slots": step2d["slots"]["K6"],
          "launches_scorp2d": scorp2d_launches["surfel_backward"],
          "launches_dp": dp_launches["surfel_backward"],
-         "launches_dp_checks": dp["check_launches"]["surfel_backward"]},
+         "launches_dp_checks": dp["check_launches"]["surfel_backward"],
+         "launches_long": long("surfel_backward")},
     ]
     print(f"  training app: loss {train['loss_first']:.6f} -> {train['loss_last']:.6f}, "
           f"{train['wall_s']:.2f} s; train_step {step['step_ms']:.3f} ms")

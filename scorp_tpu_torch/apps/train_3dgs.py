@@ -177,10 +177,11 @@ def load_checkpoint(path: str, device) -> tuple:
 
 
 def evaluate(scene: Scene, state, sh_degree: int, bg, cfg, iteration: int, device,
-             quiet=False, render_fn=render):
+             quiet=False, render_fn=render, dropped_keys: list | None = None):
     """In-loop test/train eval (the reference's training_report), rendered
     by `render_fn` (`render`, or `render2d` for surfels) from the live padded
-    state with the training RasterConfig."""
+    state with the training RasterConfig. Each view's dropped-key count is
+    appended to `dropped_keys` when a list is given, whatever `quiet`."""
     results = {}
     train_cams = scene.get_train_cameras()
     configs = [
@@ -194,9 +195,11 @@ def evaluate(scene: Scene, state, sh_degree: int, bg, cfg, iteration: int, devic
             l1s, psnrs = [], []
             for cam in cams:
                 out = render_fn(cam.to_torch(device), state, bg, sh_degree=sh_degree, cfg=cfg)
-                if int(out["num_dropped_keys"]) > 0 and not quiet:
-                    print(f"\n[ITER {iteration}] eval view dropped "
-                          f"{int(out['num_dropped_keys'])} keys")
+                n_dropped = int(out["num_dropped_keys"])
+                if dropped_keys is not None:
+                    dropped_keys.append(n_dropped)
+                if n_dropped > 0 and not quiet:
+                    print(f"\n[ITER {iteration}] eval view dropped {n_dropped} keys")
                 img = np.clip(out["render"].cpu().numpy(), 0.0, 1.0)
                 gt = np.clip(cam.gt(release=True).image, 0.0, 1.0)
                 l1s.append(float(np.abs(img - gt).mean()))
@@ -226,9 +229,10 @@ def training(
 ):
     """Returns (scene, state, adam, log) with `log` holding each
     iteration's loss and dropped-key count, the capacity changes, the raster
-    regrows, the (iteration, results) of each in-loop evaluation and the
-    (iteration, alive before, candidates, alive after) of each
-    densification.
+    regrows, the (iteration, degree) of each SH-degree step, the (iteration,
+    results) of each in-loop evaluation with the (iteration, keys dropped
+    over its views) beside it, and the (iteration, alive before, candidates,
+    alive after, dropped candidates) of each densification.
 
     `surfel=True` is the 2DGS trainer's loop (apps/train_2dgs.py): surfels
     from the point cloud, `train_step_2d` with Opt2DParams and `render2d`
@@ -282,12 +286,13 @@ def training(
     active_sh = min(first_iter // 1000, dataset.sh_degree)
     meter = ProgressMeter(opt.iterations, disable=quiet)
     log = {"loss": [], "dropped_keys": [], "capacity": [], "raster_keys": [], "eval": [],
-           "densify": []}
+           "eval_dropped_keys": [], "densify": [], "sh_degree": []}
 
     t_start = time.time()
     for iteration in range(first_iter + 1, opt.iterations + 1):
         if iteration % 1000 == 0 and active_sh < dataset.sh_degree:
             active_sh += 1
+            log["sh_degree"].append((iteration, active_sh))
 
         if gui is not None:
             gui_tick(gui, gui_render, dataset.source_path, iteration, opt.iterations)
@@ -312,9 +317,11 @@ def training(
             tb_writer.add_scalar("total_points", int(metrics.num_alive), iteration)
 
         if iteration in testing_iterations:
+            eval_dropped: list[int] = []
             results = evaluate(scene, state, active_sh, bg_fixed, cfg, iteration, dev,
-                               quiet=quiet, render_fn=render_fn)
+                               quiet=quiet, render_fn=render_fn, dropped_keys=eval_dropped)
             log["eval"].append((iteration, results))
+            log["eval_dropped_keys"].append((iteration, sum(eval_dropped)))
             if tb_writer is not None:
                 for name, (l1v, psnrv) in results.items():
                     tb_writer.add_scalar(f"{name}/loss_viewpoint - l1_loss", l1v, iteration)
@@ -343,9 +350,9 @@ def training(
                     max_screen_size=opt.max_screen_size,
                     use_size_threshold=use_size,
                 )
-                log["densify"].append((iteration, n_alive, expected_new,
-                                       int(state.num_alive())))
-                n_alive = int(state.num_alive())
+                n_before, n_alive = n_alive, int(state.num_alive())
+                log["densify"].append((iteration, n_before, expected_new, n_alive,
+                                       int(dropped)))
                 # grow BEFORE the buffer can saturate (a saturated densify
                 # drops clone/split candidates the reference would keep)
                 if int(dropped) > 0 or n_alive > 0.7 * state.capacity:

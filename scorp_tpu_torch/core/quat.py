@@ -87,3 +87,23 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R(q) @ diag(s): [...,3] scales + [...,4] quats -> [...,3,3]."""
+    return quat_to_rotmat(q) * s[..., None, :]
+
+
+def covariance_from_scaling_rotation(
+    scaling: torch.Tensor, scaling_modifier: float, q: torch.Tensor
+) -> torch.Tensor:
+    """Upper-triangular [..., 6] 3D covariance (xx, xy, xz, yy, yz, zz) of
+    Σ = L Lᵀ with L = R diag(s·mod), the reference's
+    `build_covariance_from_scaling_rotation`."""
+    L = build_scaling_rotation(scaling * scaling_modifier, q)
+    cov = L @ L.transpose(-1, -2)
+    return torch.stack(
+        [cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+         cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+        dim=-1,
+    )

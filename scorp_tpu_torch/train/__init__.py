@@ -7,8 +7,11 @@ from .state import (  # noqa: F401
     expon_lr,
     from_gaussian_data,
     from_point_cloud,
+    get_color,
+    get_normal,
     grow_capacity,
     init_adam,
+    rgb_to_sh_inv,
     round_capacity,
     state_from_numpy,
     to_gaussian_data,

@@ -24,7 +24,8 @@ import torch
 
 from ..core.camera import camera_from_numpy  # noqa: F401  (re-exported)
 from ..core.plyio import GaussianData
-from ..core.sh import rgb_to_sh
+from ..core.quat import quat_to_rotmat
+from ..core.sh import rgb_to_sh, sh_to_rgb
 from ..device import resolve_device
 from ..ops.knn import knn_mean_dist2
 
@@ -220,3 +221,26 @@ def adam_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
         new_params[k] = params[k] - lrs[k] * update
         new_m[k], new_v[k] = m, v
     return new_params, AdamState(new_m, new_v, step)
+
+
+def get_normal(params: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Per-gaussian unit normal: the rotation column of the smallest scale
+    axis (the third frame axis for surfels, which have 2 scale columns)."""
+    R = quat_to_rotmat(params["rotation"])
+    s = torch.exp(params["scaling"])
+    if s.shape[1] == 2:
+        n = R[:, :, 2]
+    else:
+        axis = torch.argmin(s, dim=-1)
+        n = torch.take_along_dim(R, axis[:, None, None], dim=2)[:, :, 0]
+    return n / torch.clamp_min(torch.linalg.vector_norm(n, dim=-1, keepdim=True), 1e-12)
+
+
+def get_color(params: dict[str, torch.Tensor]) -> torch.Tensor:
+    """DC-band RGB of each gaussian (SH2RGB of f_dc)."""
+    return rgb_to_sh_inv(params["f_dc"][:, 0, :])
+
+
+def rgb_to_sh_inv(sh):
+    """SH DC coefficients -> RGB (the inverse of `rgb_to_sh`)."""
+    return sh_to_rgb(sh)

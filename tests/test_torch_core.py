@@ -67,6 +67,23 @@ def test_quat_to_rotmat_matches_jax_and_zero_quat_is_safe():
     np.testing.assert_array_equal(qt.grad[0].numpy(), np.zeros(4, np.float32))
 
 
+
+@pytest.mark.parametrize("modifier", [1.0, 0.7])
+def test_scaling_rotation_and_covariance_match_jax(modifier):
+    rng = np.random.default_rng(5)
+    s = np.exp(rng.normal(-3.0, 0.5, size=(300, 3))).astype(np.float32)
+    q = rng.normal(size=(300, 4)).astype(np.float32)
+    L = tquat.build_scaling_rotation(torch.from_numpy(s), torch.from_numpy(q)).numpy()
+    np.testing.assert_allclose(
+        L, np.asarray(jquat.build_scaling_rotation(jnp.asarray(s), jnp.asarray(q))),
+        atol=1e-7, rtol=1e-6)
+    got = tquat.covariance_from_scaling_rotation(torch.from_numpy(s), modifier,
+                                                 torch.from_numpy(q)).numpy()
+    ref = np.asarray(jquat.covariance_from_scaling_rotation(jnp.asarray(s), modifier,
+                                                            jnp.asarray(q)))
+    assert got.shape == (300, 6)
+    np.testing.assert_allclose(got, ref, atol=1e-9, rtol=1e-5)
+
 def _jax_cam_fields(c):
     return [np.asarray(c.viewmatrix), np.asarray(c.projmatrix), np.asarray(c.campos),
             np.asarray(c.tanfovx), np.asarray(c.tanfovy)]

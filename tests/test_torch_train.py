@@ -300,6 +300,24 @@ def test_opacity_tracker_matches_jax():
     np.testing.assert_array_equal(tt.always_high.numpy(), np.asarray(jt.always_high))
 
 
+
+@pytest.mark.parametrize("surfel", [False, True])
+def test_normal_color_and_sh_inverse_match_jax(surfel):
+    rng = np.random.default_rng(9)
+    n = 257
+    params = {"rotation": rng.normal(size=(n, 4)).astype(np.float32),
+              "scaling": rng.normal(-3.0, 0.6, size=(n, 2 if surfel else 3)).astype(np.float32),
+              "f_dc": rng.normal(0, 0.8, size=(n, 1, 3)).astype(np.float32)}
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    np.testing.assert_allclose(tstate.get_normal(tp).numpy(), np.asarray(jstate.get_normal(jp)),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(tstate.get_color(tp).numpy(),
+                                  np.asarray(jstate.get_color(jp)))
+    sh = params["f_dc"][:, 0]
+    np.testing.assert_array_equal(tstate.rgb_to_sh_inv(torch.from_numpy(sh)).numpy(),
+                                  np.asarray(jstate.rgb_to_sh_inv(jnp.asarray(sh))))
+
 # --- the app ---------------------------------------------------------------
 
 SYNTH_W, SYNTH_H = 48, 36
