@@ -32,7 +32,8 @@ Phases, in order (any failure exits non-zero):
      the int64 keys: each kernel beside its plain version and its bound, each
      stage of a frame, the ATen ops a frame dispatches, and the device's
      busy time per frame from a torch.profiler trace. A kernel's "ms" is its
-     device time from a profiler (CUPTI) trace of 20 calls; "ms_per_call"
+     device time from a profiler (CUPTI) trace of 20 calls, which must hold
+     20 launches of it (one retrace, then a failure); "ms_per_call"
      is the CUDA-event median of 20 calls, each after a synchronize, which
      also counts the host's launch work while the device waits. K2 is
      also held bit-identical to its plain version (every output, n_contrib on
@@ -206,6 +207,32 @@ Phases, in order (any failure exits non-zero):
      and each densify round printed). Each stage's launches are held to
      its own tally (steps, evaluation renders, GT renders, re-renders,
      profiled steps).
+  16. the NaN hunt and its replay (`phase_nan_hunt`) on phase 15's scene,
+     which is removed after it: (a) `apps.train_3dgs.main`, then
+     `runs.nan_hunt.main`, each for NAN_HUNT_ITERS (700) iterations at the
+     app's defaults, through the densify rounds at 600 and 700: for the
+     hunt no fault, no dump, all losses finite; K1, the sort, K2 and K3
+     once per step in both; the hunt's ms per iteration beside the
+     trainer's (from the first to the last step's start) and phase 15's
+     pilot's; (b)
+     the hunt again with its `train_step` wrapped: after step
+     NAN_PLANT_AFTER (649) returns, the DC colour of every alive row is set
+     to 1e30 (the render stays finite at ~1e29, the SSIM's second moments
+     overflow, so step 650's loss is NaN; a zero quaternion, the round-4
+     trigger, stays finite since the norm is clamped inside the square
+     root), and before step NAN_CLEAN_DUMP_AT (640) its inputs are dumped
+     by `runs.nan_hunt.dump_step_inputs`: the fault found at 650 (or at
+     the full check at 660), the ring's older snapshot (620) replayed with
+     the fault planted again, `fault_iter650.npz` written, finite, with
+     the planted colours; the replayed losses at 621-649 within 1e-4
+     relative of the first pass's (only K3's atomics differ); launches
+     equal to the wrapper's count of steps; (c) `runs.nan_replay.main` on
+     that dump on the card and with `--device cpu`: both non-finite, first
+     at the loss, the same near-degeneracy report, the card's launches 3
+     of K1, the sort and K2 and 1 of K3; the clean dump replayed as one
+     step on the card and on the CPU's plain versions: the loss within
+     1e-5 relative, every parameter and moment column within 1e-4 x its
+     largest (K3's atomics rule); each path's time and a snapshot's bytes.
 The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
@@ -215,8 +242,10 @@ K1, K2 and K4-K6 with theirs in phase 13's object stages
 (`launches_scorp2d`), K1 and K4 with theirs in its mesh extraction
 (`launches_mesh`), and every kernel with its launches on phase 14's main
 path (`launches_dp`) and, apart, in that phase's checks
-(`launches_dp_checks`), and each kernel's launches in each stage of phase 15
-(`launches_long`).
+(`launches_dp_checks`), each kernel's launches in each stage of phase 15
+(`launches_long`), and K1-K3's in each stage of phase 16 (`launches_nan`:
+the clean hunt, the planted hunt's two passes, the card's replay of the
+fault).
 K1's entry also holds its key width, the key sort's device time
 per call (`sort_ms`; `sort_int64_torch_ms` for torch.sort of the keys as
 int64, the earlier route), torch.sort's on the same keys as `library_ms`,
@@ -395,27 +424,49 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, name: str, reps: int = 20) -> float:
+PAD_KERNELS = 256  # spin kernels that open and close each kernel_ms trace, not counted
+
+
+def kernel_ms(fn, name: str, reps: int = 20, per_call: int | None = 1) -> float:
     """Device time in ms per call of the CUDA kernels whose name contains
     `name`, over `reps` calls of fn() after a warm-up, from a torch.profiler
     (CUPTI) trace: the kernel alone, without the host's work per call
     (allocating outputs, the ctypes launch) that `cuda_ms` counts when the
-    device waits for it. Raises if no such kernel ran."""
+    device waits for it. The trace must hold `reps` x `per_call` such
+    kernels (`per_call=None`: as many as a trace of one call holds): a
+    trace that lost records is taken once more, and raises if it is short
+    again. On the H100 a trace can lose its first kernel records (none in
+    phases 3-4, then 1-2 from phase 7 on, up to ~20 on a slower host, in
+    PR 13's runs) and rarely its last, so each trace opens and closes with
+    PAD_KERNELS spin kernels, which are not counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def trace(calls: int) -> tuple[int, float]:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_KERNELS):
+                torch.cuda._sleep(100)
+            for _ in range(calls):
+                fn()
+            for _ in range(PAD_KERNELS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        matched = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and name in e.key and "spin_kernel" not in e.key]
+        return (sum(e.count for e in matched),
+                sum(e.self_device_time_total for e in matched))
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and name in e.key)
-    if total <= 0:
-        raise AssertionError(f"no kernel named like {name!r} in the trace")
-    return total / 1e3 / reps
+    for attempt in (1, 2):
+        expected = reps * (per_call if per_call is not None else trace(1)[0])
+        count, total = trace(reps)
+        if count == expected > 0:
+            return total / 1e3 / reps
+        print(f"  kernel_ms({name!r}): the trace of {reps} calls holds {count} kernels, "
+              f"not {expected} (attempt {attempt} of 2)")
+    raise AssertionError(f"kernel_ms({name!r}): the trace lost records twice")
 
 
 def dispatched_ops(fn) -> int:
@@ -858,8 +909,9 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
         "torch.sort": lambda: torch.sort(keys),
         "torch.sort int64": lambda: torch.sort(keys64),
     }
-    sort_ms = {name: kernel_ms(fn, "") for name, fn in sorts.items()}
-    sort_radix_ms = {name: kernel_ms(fn, "RadixSort") for name, fn in sorts.items()}
+    sort_ms = {name: kernel_ms(fn, "", per_call=None) for name, fn in sorts.items()}
+    sort_radix_ms = {name: kernel_ms(fn, "RadixSort", per_call=None)
+                     for name, fn in sorts.items()}
 
     bins = bin_stream(prep, w, h, cfg)
     tiles_x = grid_dims(w, h)[0]
@@ -3591,10 +3643,243 @@ def phase_long_training(args, device):
                    "test_psnr": res2d["test"][1], "densify": log["densify"],
                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
     del scene, state, adam, log
-    shutil.rmtree(root, ignore_errors=True)
+    for name in ("model", "model2d"):  # the scene stays for phase 16
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  phase wall {out['wall_s']:.2f} s")
     return launches, out
+
+
+NAN_HUNT_ITERS = 700  # phase 16(a): the clean hunt, through the densify rounds at 600 and 700
+NAN_PLANT_AFTER = 649  # phase 16(b): the fault is planted in the state step 649 returns
+NAN_CLEAN_DUMP_AT = 640  # phase 16(c): the clean step whose inputs are dumped and replayed
+NAN_FIRST_DENSIFY = 600  # the trainer's first densify round (after 500, every 100)
+
+
+@contextlib.contextmanager
+def step_clock(module):
+    """Wrap `module.train_step` to record the host clock at the start of
+    each step; yields the list. (last - first) / (len - 1) is a loop's time
+    per iteration, everything between two steps included and its set-up
+    excluded."""
+    step, starts = module.train_step, []
+
+    def timed(*a, **k):
+        starts.append(time.perf_counter())
+        return step(*a, **k)
+
+    module.train_step = timed
+    try:
+        yield starts
+    finally:
+        module.train_step = step
+
+
+def per_iteration_ms(starts: list) -> float:
+    return 1e3 * (starts[-1] - starts[0]) / (len(starts) - 1)
+
+
+def replay_lines(text: str) -> list[str]:
+    """The near-degeneracy report of a nan_replay run's output: the lines
+    before it re-runs the step."""
+    lines = text.splitlines()
+    return lines[:next(i for i, line in enumerate(lines) if line.startswith("re-running"))]
+
+
+def phase_nan_hunt(args, device, scene_dir: str, pilot_ms: float):
+    """Phase 16: `runs.nan_hunt` and `runs.nan_replay` on phase 15's scene:
+    (a) `apps.train_3dgs` and then a clean hunt, each for NAN_HUNT_ITERS
+    iterations at the app's defaults (the hunt's cost per iteration is the
+    difference of the two loops'), (b) a hunt with a fault
+    planted in the state that step NAN_PLANT_AFTER returns (the DC colour
+    of every alive row set to 1e30: the render stays finite, the SSIM's
+    second moments overflow, so the next step's loss is NaN), found,
+    rewound to the ring's older snapshot, replayed and dumped, (c) the
+    fault's dump replayed on the card and on the CPU, and the clean inputs
+    of step NAN_CLEAN_DUMP_AT (dumped by the same wrapper) replayed as one
+    step on both, the card's kernels held to the CPU's plain versions."""
+    import io
+
+    import torch
+
+    from scorp_tpu_torch.apps import train_3dgs
+    from scorp_tpu_torch.runs import nan_hunt, nan_replay
+
+    root = os.path.join(WORK, "nan")
+    out, launches = {}, {}
+    t_phase = time.perf_counter()
+
+    def outdir(name: str) -> str:
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        os.symlink(os.path.abspath(scene_dir), os.path.join(d, "scene"))
+        return d
+
+    def faults(d: str) -> list[str]:
+        return sorted(f for f in os.listdir(d) if f.startswith("fault_"))
+
+    # (a) the trainer alone, then a clean hunt, on the same scene and settings
+    iters = NAN_HUNT_ITERS
+    reset_launches()
+    with step_clock(train_3dgs) as trainer_starts:
+        train_3dgs.main(["-s", scene_dir, "-m", os.path.join(root, "trainer"), "--eval",
+                         "--split_yml_name", "split.yml", "--iterations", str(iters), "--quiet",
+                         "--test_iterations", str(iters + 1), "--device", str(device)])
+    torch.cuda.synchronize()
+    launches["trainer"] = kernel_launches()
+    check(launches["trainer"] == launches_of(expand=iters, sort=iters, composite=iters,
+                                             backward=iters),
+          f"the trainer launched K1, the sort, K2 and K3 once per step: {launches['trainer']}")
+    clean_dir = outdir("clean")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with step_clock(nan_hunt) as hunt_starts:
+        res = nan_hunt.main([clean_dir, "--iters", str(iters), "--device", str(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["clean"] = kernel_launches()
+    check(res["fault"] is None and res["dump"] is None and not faults(clean_dir),
+          f"the clean hunt found no fault in {iters} iterations and wrote no dump")
+    check(len(res["losses"]) == iters and all(np.isfinite(res["losses"])),
+          f"all {iters} losses finite")
+    check(launches["clean"] == launches_of(expand=iters, sort=iters, composite=iters,
+                                           backward=iters),
+          f"the clean hunt launched K1, the sort, K2 and K3 once per step: {launches['clean']}")
+    first = NAN_FIRST_DENSIFY
+    check(res["alive"][first] != res["alive"][first - 1],
+          f"the densify round at {first} ran: alive {res['alive'][first - 1]} -> "
+          f"{res['alive'][first]}")
+    hunt_ms, trainer_ms = per_iteration_ms(hunt_starts), per_iteration_ms(trainer_starts)
+    out["clean"] = {"ms_per_iter": hunt_ms, "trainer_ms_per_iter": trainer_ms,
+                    "wall_ms_per_iter": 1e3 * wall / iters, "pilot_ms_per_iter": pilot_ms,
+                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                    "alive": [res["alive"][i - 1] for i in (1, first, first + 1, iters)]}
+    print(f"  (a) {iters} iterations: the hunt {hunt_ms:.3f} ms per iteration, the trainer on "
+          f"the same scene and settings {trainer_ms:.3f} (the hunt's read and "
+          f"{nan_hunt.SNAP}-step checks: {hunt_ms - trainer_ms:+.3f} ms); the hunt through its "
+          f"entry point {out['clean']['wall_ms_per_iter']:.3f}; phase 15's pilot "
+          f"{pilot_ms:.3f} (--grad_threshold 1e-4, with evaluations); peak device memory "
+          f"{out['clean']['peak_mib']:.1f} MiB; alive at 1, {first}, {first + 1}, {iters}: "
+          f"{out['clean']['alive']}")
+
+    # (b) a planted fault, found, rewound, replayed and dumped
+    plant_dir = outdir("plant")
+    clean_path = os.path.join(root, f"clean_iter{NAN_CLEAN_DUMP_AT}.npz")
+    step = nan_hunt.train_step
+    tally = {"steps": 0, "planted": 0}
+
+    def planted(*a, **k):
+        it = a[6]
+        tally["steps"] += 1
+        if it == NAN_CLEAN_DUMP_AT and not os.path.exists(clean_path):
+            nan_hunt.dump_step_inputs(clean_path, a[0], a[1], a[2], a[7], it, k["sh_degree"],
+                                      a[3])
+        state, adam, metrics = step(*a, **k)
+        if it == NAN_PLANT_AFTER:
+            tally["planted"] += 1
+            p = dict(state.params)
+            p["f_dc"] = torch.where(state.alive[:, None, None], 1e30, p["f_dc"])
+            state = state._replace(params=p)
+        return state, adam, metrics
+
+    nan_hunt.train_step = planted
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        res = nan_hunt.main([plant_dir, "--iters", str(iters), "--device", str(device)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        nan_hunt.train_step = step
+    launches["plant"] = kernel_launches()
+    fault_it = NAN_PLANT_AFTER + 1
+    snap = (fault_it // nan_hunt.SNAP - 1) * nan_hunt.SNAP  # the ring's older snapshot
+    dump = os.path.join(plant_dir, f"fault_iter{fault_it}.npz")
+    check(res["fault"] in (fault_it, -(-fault_it // nan_hunt.SNAP) * nan_hunt.SNAP),
+          f"the planted fault found at {res['fault']} (bad={res['bad']})")
+    check(res["snapshot"] == snap and res["dump"] == dump and faults(plant_dir) ==
+          [os.path.basename(dump)] and tally["planted"] == 2,
+          f"rewound to the snapshot at {res['snapshot']}, replayed (the fault planted again) "
+          f"and dumped {res['dump']}")
+    check(launches["plant"] == launches_of(expand=tally["steps"], sort=tally["steps"],
+                                           composite=tally["steps"], backward=tally["steps"]),
+          f"K1, the sort, K2 and K3 once per step of both passes ({tally['steps']}): "
+          f"{launches['plant']}")
+    z = np.load(dump)
+    alive = z["alive"]
+    check(all(np.isfinite(z[k]).all() for k in z.files) and (z["param.f_dc"][alive] == 1e30).all(),
+          "the dump is finite and holds the planted colours of every alive row")
+    rel = max(abs(res["replay_losses"][i] - res["losses"][i - 1]) / abs(res["losses"][i - 1])
+              for i in range(snap + 1, fault_it))
+    check(rel <= 1e-4, f"the replayed losses at {snap + 1}-{fault_it - 1} within 1e-4 relative "
+          f"of the first pass's (largest {rel:.3g}; only K3's atomics differ)")
+    out["plant"] = {"fault": res["fault"], "bad": res["bad"], "snapshot": res["snapshot"],
+                    "dump": os.path.basename(dump), "steps": tally["steps"],
+                    "replay_loss_rel": rel, "wall_s": wall}
+    print(f"  (b) planted after step {NAN_PLANT_AFTER}: found at {res['fault']}, rewound to "
+          f"{res['snapshot']}, {tally['steps']} steps in {wall:.2f} s; replayed losses within "
+          f"{rel:.3g} relative of the first pass's; dumped {os.path.basename(dump)}")
+
+    # (c) the dumps replayed on the card's kernels and on the CPU's plain versions
+    verdicts = {}
+    for dev in (str(device), "cpu"):
+        reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            r = nan_replay.main([dump, "--device", dev])
+        verdicts[dev] = (r, replay_lines(buf.getvalue()), time.perf_counter() - t0)
+        if dev == str(device):
+            launches["replay"] = kernel_launches()
+        print("\n".join(f"    {dev}: {line}" for line in buf.getvalue().splitlines()
+                        if "post-step" not in line))
+    (rc, lc, tc), (rp, lp, tp) = verdicts[str(device)], verdicts["cpu"]
+    check(rc["stage"] == rp["stage"] == "loss",
+          f"the fault's step non-finite on both paths, first at the same stage, the loss: "
+          f"card {rc['stage']}, CPU {rp['stage']}")
+    check(launches["replay"] == launches_of(expand=3, sort=3, composite=3, backward=1),
+          f"the card's replay launched K1, the sort and K2 three times (the forward alone, the "
+          f"step, the step under anomaly detection) and K3 once (the anomaly pass stops in the "
+          f"SSIM's backward): {launches['replay']}")
+    check(lc == lp and len(lc) >= 5, "both paths print the same near-degeneracy report")
+    out["replay_fault"] = {"stage": rc["stage"], "card_s": tc, "cpu_s": tp}
+    clean = []
+    for dev in (str(device), "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            inputs = nan_replay.load(clean_path, dev)
+            clean.append(nan_replay.replay(*inputs))
+    rc, rp = clean
+    check(rc["stage"] is None and rp["stage"] is None,
+          f"the clean step at {NAN_CLEAN_DUMP_AT} finite on both paths")
+    loss_rel = abs(rc["loss"] - rp["loss"]) / abs(rp["loss"])
+    check(loss_rel <= 1e-5, f"the clean step's loss on the card {rc['loss']:.8f} within 1e-5 "
+          f"relative of the CPU's {rp['loss']:.8f} ({loss_rel:.3g})")
+
+    def columns(r):
+        st, ad = r["state"], r["adam"]
+        cols = {k: v.cpu() for k, v in st.params.items()}
+        cols.update({f"adam_m.{k}": v.cpu() for k, v in ad.m.items()})
+        cols.update({f"adam_v.{k}": v.cpu() for k, v in ad.v.items()})
+        return cols
+
+    worst = check_columns(columns(rc), columns(rp),
+                          f"the clean step at {NAN_CLEAN_DUMP_AT}, card vs CPU")
+    st, ad = inputs[:2]  # the CPU's copy of the clean inputs: a snapshot's tensors
+    out["replay_clean"] = {"loss_rel": loss_rel, "worst_column": worst,
+                           "card_s": rc["seconds"], "cpu_s": rp["seconds"],
+                           "capacity": st.capacity, "alive": int(st.alive.sum()),
+                           "snapshot_bytes": sum(t.numel() * t.element_size() for t in (
+                               *st.params.values(), *st[1:], *ad.m.values(), *ad.v.values()))}
+    print(f"  (c) replays: the fault's step {out['replay_fault']['card_s']:.2f} s on the card, "
+          f"{out['replay_fault']['cpu_s']:.2f} s on the CPU; the clean step "
+          f"{rc['seconds']:.3f} s on the card, {rp['seconds']:.2f} s on the CPU "
+          f"({out['replay_clean']['alive']} alive, capacity {out['replay_clean']['capacity']}; "
+          f"a snapshot then holds {out['replay_clean']['snapshot_bytes']} bytes)")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase wall {out['wall_s']:.2f} s")
+    return launches, out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3739,10 +4024,21 @@ def main(argv=None) -> int:
           f"train_2dgs ({LONG_2DGS_ITERS} iterations)")
     long_launches, long_run = phase_long_training(args, device)
     print(f"  long training: {json.dumps(long_run)}")
+    torch.cuda.empty_cache()
+
+    print(f"[16] the NaN hunt and its replay on phase 15's scene: runs.nan_hunt clean "
+          f"({NAN_HUNT_ITERS} iterations) and with a fault planted after step {NAN_PLANT_AFTER}; "
+          "runs.nan_replay of the fault's and a clean step's dumps on the card and the CPU")
+    nan_launches, nan = phase_nan_hunt(args, device, os.path.join(WORK, "long", "scene"),
+                                       long_run["pilot"]["ms_per_iter"])
+    print(f"  NaN hunt: {json.dumps(nan)}")
     shutil.rmtree(WORK, ignore_errors=True)
 
     def long(key):
         return {stage: n[key] for stage, n in long_launches.items()}
+
+    def nan_stages(key):
+        return {stage: n[key] for stage, n in nan_launches.items()}
 
     def timed(d):
         return {k: d[k] for k in ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by")}
@@ -3765,7 +4061,8 @@ def main(argv=None) -> int:
          "launches_scorp2d": scorp2d_launches["expand"], "launches_mesh": mesh_launches["expand"],
          "launches_dp": dp_launches["expand"], "sort_launches_dp": dp_launches["sort"],
          "launches_dp_checks": dp["check_launches"]["expand"],
-         "launches_long": long("expand")},
+         "launches_long": long("expand"), "launches_nan": nan_stages("expand"),
+         "sort_launches_nan": nan_stages("sort")},
         {"name": "K2 composite", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train_launches["composite"],
          "launches_eval": launches["composite"],
@@ -3776,7 +4073,7 @@ def main(argv=None) -> int:
          "launches_scorp2d": scorp2d_launches["composite"],
          "launches_dp": dp_launches["composite"],
          "launches_dp_checks": dp["check_launches"]["composite"],
-         "launches_long": long("composite")},
+         "launches_long": long("composite"), "launches_nan": nan_stages("composite")},
         {"name": "K3 composite_backward", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train_launches["backward"],
          "max_abs_err": k3_err, **timed(step["k3"]),
@@ -3784,7 +4081,7 @@ def main(argv=None) -> int:
          "launches_scorp": scorp_launches["backward"],
          "launches_dp": dp_launches["backward"],
          "launches_dp_checks": dp["check_launches"]["backward"],
-         "launches_long": long("backward")},
+         "launches_long": long("backward"), "launches_nan": nan_stages("backward")},
         {"name": "K4 surfel_composite", "route": "cuda", "source": SK_SOURCE,
          "replaces": K4_REPLACES, "launches": launches2d["surfel_composite"],
          "launches_2dgs_train_evals": train2d_launches["surfel_composite"],

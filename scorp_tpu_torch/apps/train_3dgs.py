@@ -212,6 +212,57 @@ def evaluate(scene: Scene, state, sh_degree: int, bg, cfg, iteration: int, devic
     return results
 
 
+def densify_round(state, adam, gen, iteration: int, opt, cameras_extent: float,
+                  white_background: bool, log: dict | None = None):
+    """The densification of one iteration of the trainer's loop -> (state,
+    adam): every `densification_interval` iterations after
+    `densify_from_iter` (until `densify_until_iter`) a capacity growth if
+    the candidates could run out of free slots, `densify_and_prune` with
+    split samples from the torch.Generator `gen`, and a growth when the
+    state fills; the opacity reset every `opacity_reset_interval`. `opt`
+    is the CLI group or the step's OptParams (the fields are the same).
+    With `log`, each capacity change and round is appended to its
+    "capacity" and "densify" lists (see `training`)."""
+    if iteration >= opt.densify_until_iter:
+        return state, adam
+    if iteration > opt.densify_from_iter and iteration % opt.densification_interval == 0:
+        use_size = iteration > opt.opacity_reset_interval
+        # pre-grow so the densify scatter never runs out of slots
+        expected_new = int(count_densify_candidates(state, opt.densify_grad_threshold))
+        n_alive = int(state.num_alive())
+        if n_alive + expected_new > 0.95 * state.capacity:
+            new_cap = round_capacity(
+                max(int(state.capacity * 2.0), int((n_alive + expected_new) * 1.2)))
+            print(f"\n[ITER {iteration}] capacity {state.capacity} -> {new_cap}")
+            if log is not None:
+                log["capacity"].append((iteration, state.capacity, new_cap))
+            state, adam = grow_capacity(state, adam, new_cap)
+        state, adam, dropped = densify_and_prune(
+            state, adam, gen,
+            opt.densify_grad_threshold, opt.opacity_cull,
+            cameras_extent, opt.percent_dense,
+            max_screen_size=opt.max_screen_size,
+            use_size_threshold=use_size,
+        )
+        n_before, n_alive = n_alive, int(state.num_alive())
+        if log is not None:
+            log["densify"].append((iteration, n_before, expected_new, n_alive, int(dropped)))
+        # grow BEFORE the buffer can saturate (a saturated densify
+        # drops clone/split candidates the reference would keep)
+        if int(dropped) > 0 or n_alive > 0.7 * state.capacity:
+            new_cap = round_capacity(int(state.capacity * 2.0))
+            print(f"\n[ITER {iteration}] capacity {state.capacity} -> {new_cap} "
+                  f"(alive {n_alive}, dropped {int(dropped)})")
+            if log is not None:
+                log["capacity"].append((iteration, state.capacity, new_cap))
+            state, adam = grow_capacity(state, adam, new_cap)
+    if iteration % opt.opacity_reset_interval == 0 or (
+        white_background and iteration == opt.densify_from_iter
+    ):
+        state, adam = reset_opacity(state, adam)
+    return state, adam
+
+
 def training(
     dataset: ModelParams,
     opt: OptimizationParams,
@@ -330,41 +381,8 @@ def training(
             print(f"\n[ITER {iteration}] Saving Gaussians")
             scene.save(iteration, to_gaussian_data(state))
 
-        # --- densification ---
-        if iteration < opt.densify_until_iter:
-            if iteration > opt.densify_from_iter and iteration % opt.densification_interval == 0:
-                use_size = iteration > opt.opacity_reset_interval
-                # pre-grow so the densify scatter never runs out of slots
-                expected_new = int(count_densify_candidates(state, opt.densify_grad_threshold))
-                n_alive = int(state.num_alive())
-                if n_alive + expected_new > 0.95 * state.capacity:
-                    new_cap = round_capacity(
-                        max(int(state.capacity * 2.0), int((n_alive + expected_new) * 1.2)))
-                    print(f"\n[ITER {iteration}] capacity {state.capacity} -> {new_cap}")
-                    log["capacity"].append((iteration, state.capacity, new_cap))
-                    state, adam = grow_capacity(state, adam, new_cap)
-                state, adam, dropped = densify_and_prune(
-                    state, adam, gen,
-                    opt.densify_grad_threshold, opt.opacity_cull,
-                    scene.cameras_extent, opt.percent_dense,
-                    max_screen_size=opt.max_screen_size,
-                    use_size_threshold=use_size,
-                )
-                n_before, n_alive = n_alive, int(state.num_alive())
-                log["densify"].append((iteration, n_before, expected_new, n_alive,
-                                       int(dropped)))
-                # grow BEFORE the buffer can saturate (a saturated densify
-                # drops clone/split candidates the reference would keep)
-                if int(dropped) > 0 or n_alive > 0.7 * state.capacity:
-                    new_cap = round_capacity(int(state.capacity * 2.0))
-                    print(f"\n[ITER {iteration}] capacity {state.capacity} -> {new_cap} "
-                          f"(alive {n_alive}, dropped {int(dropped)})")
-                    log["capacity"].append((iteration, state.capacity, new_cap))
-                    state, adam = grow_capacity(state, adam, new_cap)
-            if iteration % opt.opacity_reset_interval == 0 or (
-                dataset.white_background and iteration == opt.densify_from_iter
-            ):
-                state, adam = reset_opacity(state, adam)
+        state, adam = densify_round(state, adam, gen, iteration, opt, scene.cameras_extent,
+                                    dataset.white_background, log)
 
         # rasterizer capacity growth on overflow
         dropped_keys = int(metrics.num_dropped_keys)

@@ -11,4 +11,12 @@ default) and prints one JSON summary line (`summary.summarize`).
 
 Arguments after `--` go to the trainer unchanged (e.g. a densification
 schedule for a short run on the CPU).
+
+`nan_hunt` and `nan_replay` are the counterparts of `scripts/nan_hunt.py` and
+`scripts/nan_replay.py`: the densification run's recipe with checks,
+snapshots and a replay that dumps a faulting step's inputs, and the replay
+of one such dump (of either package) on the card or the CPU.
+
+    python -m scorp_tpu_torch.runs.nan_hunt [outdir] [--iters N] [--device cuda]
+    python -m scorp_tpu_torch.runs.nan_replay <dump.npz> [--device cuda]
 """
