@@ -34,7 +34,8 @@ from ..ops.losses import l1_loss, ssim
 from ..ops.raster import RasterConfig, rasterize, rasterize_surfel
 from ..ops.raster.surfel import depth_to_normal, surfel_maps
 from ..train.state import AdamState, GaussianState, adam_update, expon_lr
-from ..train.step import OptParams, _masked_mean, _masked_minmax_normalize, compute_lrs
+from ..train.step import (OptParams, _masked_mean, _masked_minmax_normalize, compute_lrs,
+                          isotropic)
 from .mesh import Group
 
 CAMERA_KEYS = ("viewmatrix", "projmatrix", "campos", "tanfovx", "tanfovy")
@@ -50,13 +51,6 @@ def stack_cameras(cams: list[Camera]) -> dict:
 def batch_camera(cam_batch: dict, i: int, width: int, height: int) -> Camera:
     """Camera `i` of a stacked batch."""
     return Camera(**{k: cam_batch[k][i] for k in CAMERA_KEYS}, width=width, height=height)
-
-
-def _isotropic(params, alive):
-    s = torch.exp(params["scaling"])
-    iso = (s - s.mean(dim=1, keepdim=True)).abs()
-    n_alive = torch.clamp_min(alive.to(torch.float32).sum(), 1.0)
-    return torch.where(alive[:, None], iso, 0.0).sum() / (n_alive * s.shape[1])
 
 
 def _depth_terms(rend_depth, d_cam, d_est, iteration, opt, has_depth_cam, has_depth_est):
@@ -146,7 +140,7 @@ def _dp_step(camera_loss, with_iso, state, adam, cam_batch, gt_images, iteration
     grads = {k: torch.zeros_like(v) for k, v in params.items()}
     sums = torch.zeros(2, cap + 1, device=dev)  # [grad-norm sum, visible count] + losses
     radii_max = torch.zeros(cap, device=dev)
-    after_warmup = iteration > opt.depth_from_iter
+    after_warmup = float(iteration > opt.depth_from_iter)
     for i in range(n_local):
         deltas = torch.zeros(cap, 2, device=dev, requires_grad=True)
         loss, ll1, radii = camera_loss(
@@ -154,8 +148,9 @@ def _dp_step(camera_loss, with_iso, state, adam, cam_batch, gt_images, iteration
             gt_depth_cam[i], gt_depth_est[i], iteration, bg, opt=opt, sh_degree=sh_degree,
             cfg=cfg, has_depth_cam=has_depth_cam, has_depth_est=has_depth_est)
         loss = loss / b
-        if i == 0 and rank == 0 and with_iso and after_warmup and opt.lambda_isotropic > 0:
-            loss = loss + opt.lambda_isotropic * _isotropic(params, alive)
+        if i == 0 and rank == 0 and with_iso and opt.lambda_isotropic > 0:
+            # weighted, not skipped, before the warm-up ends (see train/step.py)
+            loss = loss + after_warmup * opt.lambda_isotropic * isotropic(params["scaling"], alive)
         g = torch.autograd.grad(loss, [params[k] for k in keys] + [deltas])
         for k, gk in zip(keys, g[:-1]):
             grads[k] += gk

@@ -11,8 +11,11 @@ Loss recipe (the reference's OptimizationParams defaults):
                                     + 10·w(iter)·L1(minmax-norm depths | masked)
                                     + λ_iso·isotropic(scaling) )
 with w(iter) log-lerped 0.25 -> 0.075 over the run. Before depth_from_iter
-the depth and isotropic terms are skipped, not multiplied by zero: their
-gradient is zero either way.
+the depth terms are skipped, not multiplied by zero: they read only the
+render, and their gradient is zero either way. The isotropic term reads the
+scaling itself, so it is formed at every step and multiplied by the zero
+warm-up weight, as the JAX step does: an overflowing scale (exp to inf)
+then makes the loss NaN at that step in both packages.
 
 The screen-space densification gradient is the gradient of a zero NDC
 offset added to the projected means (`screen_deltas`), the reference's
@@ -78,6 +81,14 @@ class StepMetrics(NamedTuple):
 
 def _masked_mean(x, mask):
     return torch.where(mask, x, 0.0).sum() / torch.clamp_min(mask.to(x.dtype).sum(), 1.0)
+
+
+def isotropic(scaling: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Mean over alive rows and axes of |s - mean_axes(s)|, s = exp(scaling)."""
+    s = torch.exp(scaling)
+    iso = (s - s.mean(dim=1, keepdim=True)).abs()
+    n_alive = torch.clamp_min(alive.to(torch.float32).sum(), 1.0)
+    return torch.where(alive[:, None], iso, 0.0).sum() / (n_alive * s.shape[1])
 
 
 def _masked_minmax_normalize(x, mask):
@@ -168,13 +179,10 @@ def train_step(
             pn = _masked_minmax_normalize(gt_depth_est, m)
             rn = _masked_minmax_normalize(rend_depth, m)
             depth_loss = depth_loss + 10.0 * w * _masked_mean((rn - pn).abs(), m)
-        if opt.lambda_isotropic > 0:
-            s = torch.exp(params["scaling"])
-            iso = (s - s.mean(dim=1, keepdim=True)).abs()
-            n_alive = torch.clamp_min(alive.to(torch.float32).sum(), 1.0)
-            iso = torch.where(alive[:, None], iso, 0.0).sum() / (n_alive * s.shape[1])
-            loss = loss + opt.lambda_isotropic * iso
-        loss = loss + depth_loss
+    if opt.lambda_isotropic > 0:
+        after_warmup = float(iteration > opt.depth_from_iter)
+        loss = loss + after_warmup * opt.lambda_isotropic * isotropic(params["scaling"], alive)
+    loss = loss + depth_loss
     if stage_hook is not None:
         stage_hook("forward")
 

@@ -10,8 +10,10 @@ statistics. The regularizers (train_2dgs.py:141-150 of the reference):
   * depth distortion λ_dist·mean(render_dist) after iteration 3000;
   * depth-normal terms after depth_from_iter + 1000 when an estimated depth
     exists: w·[(1 − surf_normal·pred_normal) + (1 − rend_normal·pred_normal)].
-A term whose weight is zero at this iteration is skipped, not multiplied by
-zero: its gradient is zero either way.
+A term of the render whose weight is zero at this iteration is skipped, not
+multiplied by zero: its gradient is zero either way. The isotropic term
+reads the scaling itself and is multiplied by its zero warm-up weight, as in
+the JAX step, so an overflowing scale makes the loss NaN in both packages.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from ..ops.raster import RasterConfig, rasterize_surfel
 from ..ops.raster.surfel import depth_to_normal, surfel_maps
 from .densify import accumulate_stats
 from .state import AdamState, GaussianState, adam_update, expon_lr
-from .step import OptParams, StepMetrics, _masked_mean, _masked_minmax_normalize, compute_lrs
+from .step import (OptParams, StepMetrics, _masked_mean, _masked_minmax_normalize, compute_lrs,
+                   isotropic)
 
 
 @dataclass(frozen=True)
@@ -110,14 +113,11 @@ def train_step_2d(
                 dn = (1.0 - (surf_normal * pred_normal).sum(dim=0)).mean()
                 rn_loss = (1.0 - (rend_normal * pred_normal).sum(dim=0)).mean()
                 depth_loss = depth_loss + w * (dn + rn_loss)
-            # the reference adds the isotropic term only inside the
-            # depth_est branch (train_2dgs.py loss nesting)
-            if opt.lambda_isotropic > 0:
-                s = torch.exp(params["scaling"])
-                iso = (s - s.mean(dim=1, keepdim=True)).abs()
-                n_alive = torch.clamp_min(alive.to(torch.float32).sum(), 1.0)
-                iso = torch.where(alive[:, None], iso, 0.0).sum() / (n_alive * s.shape[1])
-                loss = loss + opt.lambda_isotropic * iso
+    # the reference adds the isotropic term only inside the depth_est
+    # branch (train_2dgs.py loss nesting); weighted, not skipped (see step.py)
+    if has_depth_est and opt.lambda_isotropic > 0:
+        after_warmup = float(iteration > opt.depth_from_iter)
+        loss = loss + after_warmup * opt.lambda_isotropic * isotropic(params["scaling"], alive)
     total = loss + depth_loss
     if iteration > 7000 and opt.lambda_normal != 0.0:
         total = total + opt.lambda_normal * (1.0 - (rend_normal * surf_normal).sum(dim=0)).mean()
