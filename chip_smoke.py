@@ -178,7 +178,15 @@ Phases, in order (any failure exits non-zero):
      memory beside DP_BATCH x one train_step; `dp_render` of the 2 test views
      bit-equal to `render()`'s; an ORBIT_FRAMES-frame `generate_ellipse_path`
      rendered by `render` and `render2d` and saved by `save_img_u8` (finite,
-     mean alpha above 0); `apps.metrics.evaluate_dirs` (use_alpha) over phase 2's renders
+     mean alpha above 0), and each orbit's PNGs encoded by
+     `render_paths.create_videos` into an MPEG-4 Part 2 `.mp4` on the card
+     (`pipeline/video.py`, no cv2; no kernel of K1-K6 launched): byte-equal
+     to the encode with device="cpu", the container parsed back
+     (ORBIT_FRAMES samples, the VOL's width, height and VIDEO_FPS, stsz
+     summing to mdat's payload), the encoder's reconstruction against the
+     PNGs at PSNR >= VIDEO_PSNR_MIN, the encode's ms per frame split into
+     PNG read, device stages and bit packing plus container, and its bytes
+     per frame; `apps.metrics.evaluate_dirs` (use_alpha) over phase 2's renders
      on the card against the CPU (PSNR, SSIM 1e-5, lpips_proxy 1e-4
      relative) and LPIPS with random weights of the true shapes on a 256x256
      crop (1e-4 relative), with each metric's ms per full-width image; one
@@ -2928,6 +2936,12 @@ def phase_scorp2d(args, device):
 DP_BATCH = 4      # cameras per data-parallel step in phase 14
 DP_STEPS = 3      # data-parallel steps of each kind in phase 14
 ORBIT_FRAMES = 8  # frames of phase 14's ellipse path
+VIDEO_FPS = 30  # the rate of phase 14's orbit videos (create_videos' default)
+# least PSNR (dB) of the encoder's reconstruction of an orbit against its PNGs:
+# tests/test_torch_video.py measures this scene's orbit renders at 200x133
+# (n/64 gaussians, scales x8) at 37.9-38.6 dB for 3DGS and 34.1-35.4 dB for
+# 2DGS at VOP_QUANT 3, and holds them to this limit as well
+VIDEO_PSNR_MIN = 32.0
 METRICS = os.path.join(ROOT, "build", "smoke_metrics")  # phase 2's renders + GT, for phase 14
 
 
@@ -3237,11 +3251,97 @@ def proxy_lpips_only():
             sys.modules["lpips"] = saved[1]
 
 
+@contextlib.contextmanager
+def timed_calls(module, names, sync):
+    """Wrap each `module.<name>` to add its wall seconds, to the end of
+    `sync()` after it, to a dict by name; yields the dict."""
+    saved = {name: getattr(module, name) for name in names}
+    spent = dict.fromkeys(names, 0.0)
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def check_video(frame_dir: str, tag: str, width: int, height: int, device) -> dict:
+    """`render_paths.create_videos` of one orbit's PNGs on the card, timed
+    by stage (PNG read, the device stages `intra_levels` and `vop_codes`,
+    then `pack_bits` and the container), and again with device="cpu": the
+    two files byte-equal, the container parsed back (ORBIT_FRAMES samples,
+    the VOL's size and rate, stsz summing to mdat's payload) and the
+    encoder's reconstruction of every frame against its PNG (PSNR >=
+    VIDEO_PSNR_MIN)."""
+    import torch
+
+    from scorp_tpu_torch.pipeline import render_paths, video
+
+    path, cpu_path = (os.path.join(WORK, f"{tag}{s}.mp4") for s in ("", "_cpu"))
+    torch.cuda.synchronize()
+    reset_launches()
+    with timed_calls(render_paths, ("read_png",), lambda: None) as read, \
+            timed_calls(video, ("intra_levels", "vop_codes", "pack_bits"),
+                        torch.cuda.synchronize) as dev:
+        t0 = time.perf_counter()
+        render_paths.create_videos(frame_dir, path, VIDEO_FPS, device=device)
+        total = time.perf_counter() - t0
+    check(kernel_launches() == launches_of(), f"{tag}.mp4: the encoder launches none of K1-K6")
+    t0 = time.perf_counter()
+    render_paths.create_videos(frame_dir, cpu_path, VIDEO_FPS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    with open(path, "rb") as f, open(cpu_path, "rb") as g:
+        card, cpu = f.read(), g.read()
+    check(card == cpu, f"{tag}.mp4 encoded on the card is byte-equal to the CPU's encode "
+          f"({len(card)} bytes)")
+    info = video.read_mp4(path)
+    n = len(info.sample_sizes)
+    check(n == ORBIT_FRAMES and (info.width, info.height, info.vop_rate)
+          == (width, height, VIDEO_FPS) and sum(info.sample_sizes) == info.mdat_payload,
+          f"{tag}.mp4 parses back: {n} samples, VOL {info.width}x{info.height} at "
+          f"{info.vop_rate} fps, stsz sum {sum(info.sample_sizes)} = mdat payload "
+          f"{info.mdat_payload}")
+    sq, count = 0.0, 0
+    for name in sorted(os.listdir(frame_dir)):
+        src = torch.from_numpy(render_paths.read_png(os.path.join(frame_dir, name))).to(device)
+        rec = video.reconstruct(video.intra_levels(src), width, height)
+        sq += float(((rec.double() - src.double()) ** 2).sum())
+        count += src.numel()
+    psnr_db = 10 * np.log10(255.0 ** 2 / (sq / count))
+    check(psnr_db >= VIDEO_PSNR_MIN, f"{tag}.mp4: the reconstruction's PSNR against the PNGs "
+          f"{psnr_db:.4f} dB >= {VIDEO_PSNR_MIN} dB")
+    ms = {"total": 1e3 * total / n, "png_read": 1e3 * read["read_png"] / n,
+          "device_stages": 1e3 * (dev["intra_levels"] + dev["vop_codes"]) / n,
+          "pack_bits": 1e3 * dev["pack_bits"] / n}
+    ms["packing_and_container"] = ms["total"] - ms["png_read"] - ms["device_stages"]
+    out = {"bytes_per_frame": info.mdat_payload / n, "file_bytes": len(card),
+           "ms_per_frame": ms, "cpu_ms_per_frame": 1e3 * cpu_s / n, "psnr_db": float(psnr_db)}
+    print(f"  {tag}.mp4: {n} frames at {width}x{height}, {out['bytes_per_frame']:.0f} bytes "
+          f"per frame; encode on the card {ms['total']:.3f} ms per frame = PNG read "
+          f"{ms['png_read']:.3f} + device stages {ms['device_stages']:.3f} + bit packing and "
+          f"container {ms['packing_and_container']:.3f} (pack_bits alone "
+          f"{ms['pack_bits']:.3f}); on the CPU {out['cpu_ms_per_frame']:.3f} ms per frame; "
+          f"reconstruction PSNR {psnr_db:.4f} dB")
+    return out
+
+
 def phase_dp(args, device):
     """Phase 14: the camera-batch data-parallel steps (3DGS and 2DGS) in a
-    one-rank NCCL group, dp_render, the ellipse path rendered both ways,
-    the metrics app on the card, the viewer's round trip and segmentation_2d
-    without cv2, on phase 12's 10-view scene at full width."""
+    one-rank NCCL group, dp_render, the ellipse path rendered both ways and
+    encoded into videos, the metrics app on the card, the viewer's round
+    trip and segmentation_2d without cv2, on phase 12's 10-view scene at
+    full width."""
     import torch
     from PIL import Image
 
@@ -3328,6 +3428,10 @@ def phase_dp(args, device):
         with Image.open(os.path.join(frame_dir, "000.png")) as im:
             check(im.size == (args.width, args.height) and im.mode == "RGB",
                   f"{tag}: PNGs written ({im.size[0]}x{im.size[1]})")
+
+    # 4b. each orbit's PNGs encoded into a video on the card and on the CPU
+    out["video"] = {tag: check_video(os.path.join(WORK, tag), tag, args.width, args.height,
+                                     device) for tag in ("orbit_3dgs", "orbit_2dgs")}
 
     # 5. the metrics app on the card against the CPU
     pred, gt = os.path.join(METRICS, "pred"), os.path.join(METRICS, "gt")
@@ -4010,8 +4114,8 @@ def main(argv=None) -> int:
 
     print(f"[14] scale-out and the render consumers at full width: {args.n} gaussians, "
           f"{SCORP_VIEWS} views at {args.width}x{args.height}: dp_train_step and "
-          f"dp_train_step_2d (B={DP_BATCH}, one-rank NCCL group), dp_render, the ellipse path, "
-          "metrics, the viewer, segmentation_2d")
+          f"dp_train_step_2d (B={DP_BATCH}, one-rank NCCL group), dp_render, the ellipse path "
+          "and its videos, metrics, the viewer, segmentation_2d")
     dp_launches, dp = phase_dp(args, device)
     print(f"  scale-out: {json.dumps(dp)}")
     shutil.rmtree(WORK, ignore_errors=True)

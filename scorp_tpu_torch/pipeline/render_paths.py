@@ -6,10 +6,12 @@ PCA-normalise the training camera centres, generate a smooth ellipse
 and encode frames into a video. Host code: the paths are numpy, and a
 camera goes to a device through `MiniCam.to_torch`.
 
-Deliberate differences from the JAX module: `save_img_u8` writes through
-PIL (the JAX one converts RGB to BGR for `cv2.imwrite`; the PNG's pixels
-are the same), so only `create_videos` needs cv2, imported inside it as the
-JAX version does.
+Deliberate differences from the JAX module, which calls cv2: `save_img_u8`
+writes through PIL (the JAX one converts RGB to BGR for `cv2.imwrite`; the
+PNG's pixels are the same), and `create_videos` reads the PNGs with PIL and
+encodes them on a device with `pipeline.video` (an intra-only MPEG-4 Part 2
+`mp4v` stream in an `.mp4`, the format the JAX one asks of cv2's
+VideoWriter), so nothing here needs cv2.
 """
 
 from __future__ import annotations
@@ -17,10 +19,13 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 from PIL import Image
 
 from ..core.camera import projection_matrix, world_to_view
+from ..device import resolve_device
 from ..scene.cameras import MiniCam
+from . import video
 
 
 def _pose_pca(centers: np.ndarray):
@@ -94,17 +99,21 @@ def save_img_f32(img: np.ndarray, path: str):
     np.save(path if path.endswith(".npy") else path + ".npy", img.astype(np.float32))
 
 
-def create_videos(frame_dir: str, out_path: str, fps: int = 30):
-    """Encode {frame_dir}/*.png into a video (cv2 VideoWriter)."""
-    import cv2
+def read_png(path: str) -> np.ndarray:
+    """A PNG as [H, W, 3] uint8 RGB: grey expanded and alpha dropped, the
+    pixels `cv2.imread` reads (in BGR order) in the JAX package."""
+    with Image.open(path) as im:
+        return np.array(im.convert("RGB"))
 
+
+def create_videos(frame_dir: str, out_path: str, fps: int = 30, *,
+                  device: str | torch.device = "cuda"):
+    """Encode {frame_dir}/*.png, in name order, into an MPEG-4 Part 2
+    (`mp4v`) `.mp4` at fps, every frame an I-VOP encoded on `device`."""
     frames = sorted(f for f in os.listdir(frame_dir) if f.endswith(".png"))
     if not frames:
         raise ValueError(f"No frames found in {frame_dir}")
-    first = cv2.imread(os.path.join(frame_dir, frames[0]))
-    h, w = first.shape[:2]
-    writer = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
-    for name in frames:
-        writer.write(cv2.imread(os.path.join(frame_dir, name)))
-    writer.release()
+    dev = resolve_device(device)
+    video.write_video(out_path, (torch.from_numpy(read_png(os.path.join(frame_dir, name))).to(dev)
+                                 for name in frames), fps)
     return out_path

@@ -140,7 +140,7 @@ def test_create_videos(tmp_path):
     rng = np.random.default_rng(0)
     for i in range(5):
         tpaths.save_img_u8(rng.uniform(size=(3, 32, 32)), str(frame_dir / f"f_{i:03d}.png"))
-    out = tpaths.create_videos(str(frame_dir), str(tmp_path / "out.mp4"), fps=5)
+    out = tpaths.create_videos(str(frame_dir), str(tmp_path / "out.mp4"), fps=5, device="cpu")
     assert os.path.getsize(out) > 0
     with pytest.raises(ValueError, match="No frames"):
         tpaths.create_videos(str(tmp_path), str(tmp_path / "none.mp4"))
