@@ -57,8 +57,9 @@ Phases, in order (any failure exits non-zero):
      any regrow.
   7. one `train_step` at bench.py's training measurement (250k SH-3, one
      1600x1066 view, OptParams() at iteration 1000, random GT, black bg):
-     the step's CUDA-event median of 10, its forward, backward and Adam +
-     statistics apart, ATen ops per step, device busy time, peak memory;
+     the step's CUDA-event median of 10, the device's busy time in its
+     forward, backward and Adam + statistics (from the program's spans,
+     `step_parts_ms`), ATen ops per step, device busy time, peak memory;
      the L1 + SSIM loss's forward and backward alone at that size; K3
      against its plain version on the step's inputs (the checks of phase
      5), its time beside its plain version and its bound, and K2's time with
@@ -461,6 +462,7 @@ def kernel_ms(fn, name: str, reps: int = 20, per_call: int | None = 1) -> float:
                 torch.cuda._sleep(100)
             torch.cuda.synchronize()
         matched = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and name in e.key and "spin_kernel" not in e.key]
         return (sum(e.count for e in matched),
                 sum(e.self_device_time_total for e in matched))
@@ -508,11 +510,56 @@ def device_profile(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # the device's own work: the program's spans also appear on its timeline
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     dev.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in dev) / 1e3 / reps
     return busy, [(e.key[:110], e.self_device_time_total / 1e3 / reps) for e in dev[:8]]
 
+
+def step_parts_ms(step, reps: int = 10) -> dict:
+    """Medians over `reps` calls of step() (after a warm-up) of the device's
+    busy ms in each of a training step's three parts, read from the
+    program's spans in a torch.profiler trace. On the device's timeline
+    "forward" runs from the first kernel of `step.forward` to the last of
+    its `step.loss` (CUPTI ties a kernel to the innermost open span),
+    "adam + statistics" is the footprint of `step.update`, and "backward"
+    the time between the two: autograd launches the backward's kernels from
+    its own thread, where `step.backward` is not open. Busy time, not the
+    parts' lengths, since the profiler slows the host that feeds the
+    device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    spans = {"step.forward": [], "step.loss": [], "step.update": []}
+    kernels = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+        elif not getattr(e, "is_user_annotation", False):
+            kernels.append((e.time_range.start, e.time_range.end))
+    if any(len(v) != reps for v in spans.values()):
+        raise AssertionError(f"step_parts_ms: the trace holds "
+                             f"{ {k: len(v) for k, v in spans.items()} } spans, not {reps} each")
+
+    def busy(a, b):
+        return sum(max(0.0, min(e, b) - max(s, a)) for s, e in kernels) / 1e3
+
+    fwd, loss, upd = (sorted(spans[k]) for k in spans)
+    parts = {"forward": [busy(f[0], lo[1]) for f, lo in zip(fwd, loss)],
+             "backward": [busy(lo[1], u[0]) for lo, u in zip(loss, upd)],
+             "adam + statistics": [busy(*u) for u in upd]}
+    return {k: statistics.median(v) for k, v in parts.items()}
 
 def check(cond: bool, what: str) -> None:
     if not cond:
@@ -1179,9 +1226,9 @@ def phase_train_step(args, device):
                               stream_keys=(1 << 20) + (1 << 19))
     opt = OptParams()
 
-    def step(hook=None):
+    def step():
         return train_step(state, adam, cam, gt, zeros, zeros, 1000, bg, opt=opt,
-                          sh_degree=3, cfg=cfg, stage_hook=hook)
+                          sh_degree=3, cfg=cfg)
 
     first = step()[2]
     check(int(first.num_dropped_keys) == 0, "first step: no dropped keys")
@@ -1191,21 +1238,18 @@ def phase_train_step(args, device):
     check(int(last.num_dropped_keys) == 0 and bool(torch.isfinite(last.loss)),
           f"last step: no dropped keys, loss {float(last.loss):.6f} finite")
 
-    # the step and its three parts between CUDA events: medians of 10 steps
-    # after one warm-up step
-    parts = {"forward": [], "backward": [], "adam + statistics": []}
+    # the step between CUDA events, and its three parts from the program's
+    # spans (step_parts_ms): medians of 10 steps after one warm-up step
     totals = []
     for _ in range(11):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        step(lambda stage, ev=ev: ev[1 if stage == "forward" else 2].record())
-        ev[3].record()
+        step()
+        ev[1].record()
         torch.cuda.synchronize()
-        for i, name in enumerate(parts):
-            parts[name].append(ev[i].elapsed_time(ev[i + 1]))
-        totals.append(ev[0].elapsed_time(ev[3]))
+        totals.append(ev[0].elapsed_time(ev[1]))
     step_ms = statistics.median(totals[1:])
-    parts = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    parts = step_parts_ms(step, 10)
     ops = dispatched_ops(step)
     torch.cuda.reset_peak_memory_stats()
     step()
@@ -1213,8 +1257,8 @@ def phase_train_step(args, device):
     peak = torch.cuda.max_memory_allocated()
     busy_ms, top = device_profile(step, 5)
     print(f"  train_step: {step_ms:.3f} ms (CUDA-event median of 10 after a warm-up; "
-          f"fastest {min(totals[1:]):.3f}, slowest {max(totals[1:]):.3f}); parts "
-          + json.dumps({k: round(v, 4) for k, v in parts.items()}))
+          f"fastest {min(totals[1:]):.3f}, slowest {max(totals[1:]):.3f}); "
+          "parts' device busy ms " + json.dumps({k: round(v, 4) for k, v in parts.items()}))
     print(f"  ATen ops dispatched per step: {ops}; peak device memory {peak / 2**20:.1f} MiB; "
           f"launches per step {per_step}")
     if top:
@@ -1794,9 +1838,9 @@ def phase_surfel_train_step(args, device):
                               stream_keys=(1 << 20) + (1 << 19) + (1 << 17))
     opt = Opt2DParams(lambda_dist=100.0)  # the normal and distortion losses on at 8000
 
-    def step(hook=None):
+    def step():
         return train_step_2d(state, adam, cam, gt, zeros, zeros, 8000, bg, opt=opt,
-                             sh_degree=3, cfg=cfg, stage_hook=hook)
+                             sh_degree=3, cfg=cfg)
 
     first = step()[2]
     check(int(first.num_dropped_keys) == 0, "first step: no dropped keys")
@@ -1806,19 +1850,16 @@ def phase_surfel_train_step(args, device):
     check(int(last.num_dropped_keys) == 0 and bool(torch.isfinite(last.loss)),
           f"last step: no dropped keys, loss {float(last.loss):.6f} finite")
 
-    parts = {"forward": [], "backward": [], "adam + statistics": []}
     totals = []
     for _ in range(11):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        step(lambda stage, ev=ev: ev[1 if stage == "forward" else 2].record())
-        ev[3].record()
+        step()
+        ev[1].record()
         torch.cuda.synchronize()
-        for i, name in enumerate(parts):
-            parts[name].append(ev[i].elapsed_time(ev[i + 1]))
-        totals.append(ev[0].elapsed_time(ev[3]))
+        totals.append(ev[0].elapsed_time(ev[1]))
     step_ms = statistics.median(totals[1:])
-    parts = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    parts = step_parts_ms(step, 10)
     ops = dispatched_ops(step)
     torch.cuda.reset_peak_memory_stats()
     step()
@@ -1826,8 +1867,8 @@ def phase_surfel_train_step(args, device):
     peak = torch.cuda.max_memory_allocated()
     busy_ms, top = device_profile(step, 5)
     print(f"  train_step_2d: {step_ms:.3f} ms (CUDA-event median of 10 after a warm-up; "
-          f"fastest {min(totals[1:]):.3f}, slowest {max(totals[1:]):.3f}); parts "
-          + json.dumps({k: round(v, 4) for k, v in parts.items()}))
+          f"fastest {min(totals[1:]):.3f}, slowest {max(totals[1:]):.3f}); "
+          "parts' device busy ms " + json.dumps({k: round(v, 4) for k, v in parts.items()}))
     print(f"  ATen ops dispatched per step: {ops}; peak device memory {peak / 2**20:.1f} MiB; "
           f"launches per step {per_step}")
     if top:

@@ -16,7 +16,9 @@ default `cuda` raises. `--gui` serves the SIBR network viewer on
 `--ip`:`--port` once per iteration (`viewer.network_gui.gui_tick`; the
 reference ships this hook commented out for 3DGS). `--profile <dir>` writes
 a torch.profiler trace of the run (Chrome JSON) into <dir>, where the JAX
-app writes a jax.profiler trace.
+app writes a jax.profiler trace; it holds the program's spans
+(`utils/trace.py`: the step's parts, the rasterizer's stages, densification
+rounds).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from ..train import (
     train_step_2d,
 )
 from ..utils.progress import ProgressMeter
+from ..utils.trace import span
 from ..viewer.network_gui import gui_tick, maybe_create_gui
 
 
@@ -226,36 +229,37 @@ def densify_round(state, adam, gen, iteration: int, opt, cameras_extent: float,
     if iteration >= opt.densify_until_iter:
         return state, adam
     if iteration > opt.densify_from_iter and iteration % opt.densification_interval == 0:
-        use_size = iteration > opt.opacity_reset_interval
-        # pre-grow so the densify scatter never runs out of slots
-        expected_new = int(count_densify_candidates(state, opt.densify_grad_threshold))
-        n_alive = int(state.num_alive())
-        if n_alive + expected_new > 0.95 * state.capacity:
-            new_cap = round_capacity(
-                max(int(state.capacity * 2.0), int((n_alive + expected_new) * 1.2)))
-            print(f"\n[ITER {iteration}] capacity {state.capacity} -> {new_cap}")
+        with span("densify.round"):
+            use_size = iteration > opt.opacity_reset_interval
+            # pre-grow so the densify scatter never runs out of slots
+            expected_new = int(count_densify_candidates(state, opt.densify_grad_threshold))
+            n_alive = int(state.num_alive())
+            if n_alive + expected_new > 0.95 * state.capacity:
+                new_cap = round_capacity(
+                    max(int(state.capacity * 2.0), int((n_alive + expected_new) * 1.2)))
+                print(f"\n[ITER {iteration}] capacity {state.capacity} -> {new_cap}")
+                if log is not None:
+                    log["capacity"].append((iteration, state.capacity, new_cap))
+                state, adam = grow_capacity(state, adam, new_cap)
+            state, adam, dropped = densify_and_prune(
+                state, adam, gen,
+                opt.densify_grad_threshold, opt.opacity_cull,
+                cameras_extent, opt.percent_dense,
+                max_screen_size=opt.max_screen_size,
+                use_size_threshold=use_size,
+            )
+            n_before, n_alive = n_alive, int(state.num_alive())
             if log is not None:
-                log["capacity"].append((iteration, state.capacity, new_cap))
-            state, adam = grow_capacity(state, adam, new_cap)
-        state, adam, dropped = densify_and_prune(
-            state, adam, gen,
-            opt.densify_grad_threshold, opt.opacity_cull,
-            cameras_extent, opt.percent_dense,
-            max_screen_size=opt.max_screen_size,
-            use_size_threshold=use_size,
-        )
-        n_before, n_alive = n_alive, int(state.num_alive())
-        if log is not None:
-            log["densify"].append((iteration, n_before, expected_new, n_alive, int(dropped)))
-        # grow BEFORE the buffer can saturate (a saturated densify
-        # drops clone/split candidates the reference would keep)
-        if int(dropped) > 0 or n_alive > 0.7 * state.capacity:
-            new_cap = round_capacity(int(state.capacity * 2.0))
-            print(f"\n[ITER {iteration}] capacity {state.capacity} -> {new_cap} "
-                  f"(alive {n_alive}, dropped {int(dropped)})")
-            if log is not None:
-                log["capacity"].append((iteration, state.capacity, new_cap))
-            state, adam = grow_capacity(state, adam, new_cap)
+                log["densify"].append((iteration, n_before, expected_new, n_alive, int(dropped)))
+            # grow BEFORE the buffer can saturate (a saturated densify
+            # drops clone/split candidates the reference would keep)
+            if int(dropped) > 0 or n_alive > 0.7 * state.capacity:
+                new_cap = round_capacity(int(state.capacity * 2.0))
+                print(f"\n[ITER {iteration}] capacity {state.capacity} -> {new_cap} "
+                      f"(alive {n_alive}, dropped {int(dropped)})")
+                if log is not None:
+                    log["capacity"].append((iteration, state.capacity, new_cap))
+                state, adam = grow_capacity(state, adam, new_cap)
     if iteration % opt.opacity_reset_interval == 0 or (
         white_background and iteration == opt.densify_from_iter
     ):
@@ -470,9 +474,9 @@ def main(argv=None):
 
 @contextlib.contextmanager
 def profiled(trace_dir: str | None, device: torch.device):
-    """torch.profiler over the block (host ops, and CUDA kernels on a CUDA
-    device), written to <trace_dir>/train_3dgs.pt.trace.json; nothing
-    without a directory."""
+    """torch.profiler over the block (host ops, the program's spans, and
+    CUDA kernels on a CUDA device), written to
+    <trace_dir>/train_3dgs.pt.trace.json; nothing without a directory."""
     if not trace_dir:
         yield
         return

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ...core.camera import Camera
+from ...utils.trace import span
 from .backward import composite_backward
 from .common import (  # noqa: F401
     TILE,
@@ -72,11 +73,13 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, gid, tile_start, tile_count, bg, tiles_x):
-        data = table[gid].contiguous()
-        color, depth, alpha, n_contrib, t_final = composite(
-            data, tile_start, tile_count, bg, tiles_x=tiles_x,
-            track_ncontrib=True, with_t_final=True,
-        )
+        with span("raster.gather"):
+            data = table[gid].contiguous()
+        with span("raster.composite"):
+            color, depth, alpha, n_contrib, t_final = composite(
+                data, tile_start, tile_count, bg, tiles_x=tiles_x,
+                track_ncontrib=True, with_t_final=True,
+            )
         ctx.save_for_backward(data, gid, tile_start, tile_count, bg, t_final, n_contrib)
         ctx.n_rows, ctx.tiles_x = table.shape[0], tiles_x
         return color, depth, alpha
@@ -84,16 +87,17 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, g_depth, g_alpha):
         data, gid, tile_start, tile_count, bg, t_final, n_contrib = ctx.saved_tensors
-        # unused outputs arrive as zeros (autograd materializes them)
-        g_color, g_depth, g_alpha = (g.contiguous() for g in (g_color, g_depth, g_alpha))
-        d_table = d_bg = None
-        if ctx.needs_input_grad[0]:
-            d_table = composite_backward(
-                data, gid, tile_start, tile_count, bg, g_color, g_depth, g_alpha,
-                t_final, n_contrib, ctx.n_rows, tiles_x=ctx.tiles_x,
-            )
-        if ctx.needs_input_grad[4]:
-            d_bg = (t_final * g_color).sum(dim=(0, 2))
+        with span("raster.backward"):
+            # unused outputs arrive as zeros (autograd materializes them)
+            g_color, g_depth, g_alpha = (g.contiguous() for g in (g_color, g_depth, g_alpha))
+            d_table = d_bg = None
+            if ctx.needs_input_grad[0]:
+                d_table = composite_backward(
+                    data, gid, tile_start, tile_count, bg, g_color, g_depth, g_alpha,
+                    t_final, n_contrib, ctx.n_rows, tiles_x=ctx.tiles_x,
+                )
+            if ctx.needs_input_grad[4]:
+                d_bg = (t_final * g_color).sum(dim=(0, 2))
         return d_table, None, None, None, d_bg, None
 
 
@@ -129,7 +133,7 @@ def rasterize(
 
     w, h = cam.width, cam.height
     tiles_x = grid_dims(w, h)[0]
-    with torch.set_grad_enabled(needs_grad):
+    with torch.set_grad_enabled(needs_grad), span("raster.preprocess"):
         prep = preprocess(
             means3d, opacities, cam,
             shs=shs, sh_degree=sh_degree, colors_precomp=colors_precomp,
@@ -146,8 +150,9 @@ def rasterize(
     else:
         with torch.no_grad():
             bins = bin_stream(prep, w, h, cfg)
-            color_t, depth_t, alpha_t, _ = composite(
-                bins.data, bins.tile_start, bins.tile_count, bg, tiles_x=tiles_x)
+            with span("raster.composite"):
+                color_t, depth_t, alpha_t, _ = composite(
+                    bins.data, bins.tile_start, bins.tile_count, bg, tiles_x=tiles_x)
         dropped = bins.num_dropped_keys
     return RasterOutput(
         tiles_cp_to_image(color_t, w, h),
@@ -165,8 +170,10 @@ class _SurfelComposite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, gid, tile_start, tile_count, bg, tiles_x):
-        data = table[gid].contiguous()
-        outs = surfel_composite_train(data, tile_start, tile_count, bg, tiles_x=tiles_x)
+        with span("raster.gather"):
+            data = table[gid].contiguous()
+        with span("raster.composite"):
+            outs = surfel_composite_train(data, tile_start, tile_count, bg, tiles_x=tiles_x)
         ctx.save_for_backward(data, gid, tile_start, tile_count, bg, *outs[6:])
         ctx.n_rows, ctx.tiles_x = table.shape[0], tiles_x
         return outs[:6]
@@ -175,17 +182,18 @@ class _SurfelComposite(torch.autograd.Function):
     def backward(ctx, g_color, g_alpha, g_depth, g_normal, g_median, g_dist):
         data, gid, tile_start, tile_count, bg, n_contrib, n_med, wm, wm2, t_final = (
             ctx.saved_tensors)
-        # unused outputs arrive as zeros (autograd materializes them)
-        grads = [g.contiguous() for g in (g_color, g_alpha, g_depth, g_normal, g_median,
-                                          g_dist)]
-        d_table = d_bg = None
-        if ctx.needs_input_grad[0]:
-            d_table = surfel_backward(
-                data, gid, tile_start, tile_count, bg, *grads, t_final, n_contrib, n_med,
-                wm, wm2, ctx.n_rows, tiles_x=ctx.tiles_x,
-            )
-        if ctx.needs_input_grad[4]:
-            d_bg = (t_final * grads[0]).sum(dim=(0, 2))
+        with span("raster.backward"):
+            # unused outputs arrive as zeros (autograd materializes them)
+            grads = [g.contiguous() for g in (g_color, g_alpha, g_depth, g_normal, g_median,
+                                              g_dist)]
+            d_table = d_bg = None
+            if ctx.needs_input_grad[0]:
+                d_table = surfel_backward(
+                    data, gid, tile_start, tile_count, bg, *grads, t_final, n_contrib, n_med,
+                    wm, wm2, ctx.n_rows, tiles_x=ctx.tiles_x,
+                )
+            if ctx.needs_input_grad[4]:
+                d_bg = (t_final * grads[0]).sum(dim=(0, 2))
         return d_table, None, None, None, d_bg, None
 
 
@@ -220,7 +228,7 @@ def rasterize_surfel(
 
     w, h = cam.width, cam.height
     tiles_x = grid_dims(w, h)[0]
-    with torch.set_grad_enabled(needs_grad):
+    with torch.set_grad_enabled(needs_grad), span("raster.preprocess"):
         prep = preprocess_surfel(
             means3d, opacities, cam, shs=shs, sh_degree=sh_degree,
             colors_precomp=colors_precomp, scales=scales, quats=quats,
@@ -235,8 +243,11 @@ def rasterize_surfel(
         outs = _SurfelComposite.apply(table, route.gid, route.tile_start, route.tile_count,
                                       bg, tiles_x)
     else:
-        outs = surfel_composite(table[route.gid].contiguous(), route.tile_start,
-                                route.tile_count, bg, tiles_x=tiles_x)
+        with span("raster.gather"):
+            data = table[route.gid].contiguous()
+        with span("raster.composite"):
+            outs = surfel_composite(data, route.tile_start, route.tile_count, bg,
+                                    tiles_x=tiles_x)
     return SurfelOutput(
         *(tiles_cp_to_image(o, w, h) for o in outs),
         prep.radii,

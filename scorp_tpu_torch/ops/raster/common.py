@@ -40,6 +40,7 @@ import torch
 
 from ...core import sh as sh_lib
 from ...core.camera import Camera
+from ...utils.trace import span
 
 TILE = 16  # pixels per tile side
 ALPHA_MIN = 1.0 / 255.0
@@ -327,8 +328,9 @@ def depth_order(prep: Preprocessed) -> torch.Tensor:
     """Stable depth sort, invalid gaussians last. Invalid gaussians have
     zeroed rects, so their tile counts are 0 and the valid ones form a
     contiguous prefix of the order."""
-    inf = torch.full((), float("inf"), dtype=prep.depth.dtype, device=prep.depth.device)
-    return torch.argsort(torch.where(prep.valid, prep.depth, inf), stable=True)
+    with span("raster.route.depth_order"):
+        inf = torch.full((), float("inf"), dtype=prep.depth.dtype, device=prep.depth.device)
+        return torch.argsort(torch.where(prep.valid, prep.depth, inf), stable=True)
 
 
 def key_routing(rect_sorted: torch.Tensor):
@@ -487,8 +489,10 @@ def sorted_expansion(prep: Preprocessed, width: int, height: int, k_cap: int,
     from .sort import sort_keys
 
     x = expand_inputs(prep, width, height, k_cap, cull, geo, geo2)
-    keys, kept = expand_keys(x)
-    s = sort_keys(keys, x.end_bit)
+    with span("raster.route.expand"):
+        keys, kept = expand_keys(x)
+    with span("raster.route.sort"):
+        s = sort_keys(keys, x.end_bit)
     return s >> x.bits_g, s & ((1 << x.bits_g) - 1), x.order, x.total, kept
 
 
@@ -519,15 +523,16 @@ def route_stream(prep: Preprocessed, width: int, height: int, cfg: RasterConfig,
     k_cap = cfg.max_keys
     k2 = min(cfg.stream_cap, k_cap)
 
-    sorted_tile, g_sorted, order, total, kept = sorted_expansion(
-        prep, width, height, k_cap, cull=True, geo=geo, geo2=geo2
-    )
-    # culled + out-of-range keys sort past every live key, so slicing to
-    # the post-cull capacity is the compaction; their slots get a valid but
-    # meaningless row that no tile range reaches
-    gid = order[g_sorted[:k2]].to(torch.int32)
-    tile_start, tile_count = _tile_bounds(sorted_tile[:k2], num_tiles)
-    dropped = torch.clamp_min(total - k_cap, 0) + torch.clamp_min(kept - k2, 0)
+    with span("raster.route"):
+        sorted_tile, g_sorted, order, total, kept = sorted_expansion(
+            prep, width, height, k_cap, cull=True, geo=geo, geo2=geo2
+        )
+        # culled + out-of-range keys sort past every live key, so slicing to
+        # the post-cull capacity is the compaction; their slots get a valid but
+        # meaningless row that no tile range reaches
+        gid = order[g_sorted[:k2]].to(torch.int32)
+        tile_start, tile_count = _tile_bounds(sorted_tile[:k2], num_tiles)
+        dropped = torch.clamp_min(total - k_cap, 0) + torch.clamp_min(kept - k2, 0)
     return StreamRouting(gid, tile_start, tile_count, dropped)
 
 
@@ -536,7 +541,8 @@ def bin_stream(prep: Preprocessed, width: int, height: int,
     """Stream binning for the forward compositor: the routing, then ONE
     row gather of the per-gaussian table by the stream's gaussian rows."""
     r = route_stream(prep, width, height, cfg)
-    data = stream_table(prep)[r.gid].contiguous()
+    with span("raster.gather"):
+        data = stream_table(prep)[r.gid].contiguous()
     return StreamBins(data, r.tile_start, r.tile_count, r.num_dropped_keys)
 
 

@@ -16,6 +16,7 @@ from .core.camera import Camera
 from .core.plyio import GaussianData
 from .ops.raster import RasterConfig, rasterize
 from .train.state import GaussianState, from_gaussian_data
+from .utils.trace import span
 
 
 def render(
@@ -30,40 +31,41 @@ def render(
 ):
     """Render on the camera's device. GaussianData is uploaded there."""
     dev = cam.device
-    if isinstance(gaussians, GaussianData):
-        gaussians = from_gaussian_data(gaussians, device=dev)
-    if cfg is None:
-        cfg = default_raster_config(gaussians.capacity)
-    degree = gaussians.sh_degree if sh_degree is None else sh_degree
-    params = gaussians.params
-    kwargs = dict(
-        scales=torch.exp(params["scaling"]),
-        quats=params["rotation"],
-        scale_modifier=scaling_modifier,
-        alive=gaussians.alive,
-        cfg=cfg,
-    )
-    if override_color is not None:
-        kwargs["colors_precomp"] = override_color
-    else:
-        kwargs["shs"] = torch.cat([params["f_dc"], params["f_rest"]], dim=1)
-        kwargs["sh_degree"] = degree
-    out = rasterize(
-        params["xyz"], torch.sigmoid(params["opacity"][:, 0]), cam,
-        torch.as_tensor(bg, dtype=torch.float32, device=dev), **kwargs,
-    )
-    one = torch.ones((), device=dev)
-    depth = out.depth_accum / torch.where(out.alpha == 0.0, one, out.alpha)
-    depth = torch.nan_to_num(depth, nan=0.0, posinf=0.0, neginf=0.0)
-    return {
-        "render": out.color,
-        "render_depth": depth,
-        "render_alpha": out.alpha,
-        "radii": out.radii,
-        "visibility_filter": out.radii > 0,
-        "num_dropped_keys": out.num_dropped_keys,
-        "num_dropped_tail": out.num_dropped_tail,
-    }
+    with span("render"):
+        if isinstance(gaussians, GaussianData):
+            gaussians = from_gaussian_data(gaussians, device=dev)
+        if cfg is None:
+            cfg = default_raster_config(gaussians.capacity)
+        degree = gaussians.sh_degree if sh_degree is None else sh_degree
+        params = gaussians.params
+        kwargs = dict(
+            scales=torch.exp(params["scaling"]),
+            quats=params["rotation"],
+            scale_modifier=scaling_modifier,
+            alive=gaussians.alive,
+            cfg=cfg,
+        )
+        if override_color is not None:
+            kwargs["colors_precomp"] = override_color
+        else:
+            kwargs["shs"] = torch.cat([params["f_dc"], params["f_rest"]], dim=1)
+            kwargs["sh_degree"] = degree
+        out = rasterize(
+            params["xyz"], torch.sigmoid(params["opacity"][:, 0]), cam,
+            torch.as_tensor(bg, dtype=torch.float32, device=dev), **kwargs,
+        )
+        one = torch.ones((), device=dev)
+        depth = out.depth_accum / torch.where(out.alpha == 0.0, one, out.alpha)
+        depth = torch.nan_to_num(depth, nan=0.0, posinf=0.0, neginf=0.0)
+        return {
+            "render": out.color,
+            "render_depth": depth,
+            "render_alpha": out.alpha,
+            "radii": out.radii,
+            "visibility_filter": out.radii > 0,
+            "num_dropped_keys": out.num_dropped_keys,
+            "num_dropped_tail": out.num_dropped_tail,
+        }
 
 
 def default_raster_config(capacity: int, avg_tiles_per_gaussian: int = 16) -> RasterConfig:

@@ -20,6 +20,7 @@ from .ops.raster import RasterConfig, rasterize_surfel
 from .ops.raster.surfel import surfel_maps
 from .render import default_raster_config
 from .train.state import GaussianState, from_gaussian_data
+from .utils.trace import span
 
 
 def render2d(
@@ -35,38 +36,39 @@ def render2d(
 ):
     """Render surfels on the camera's device. GaussianData is uploaded there."""
     dev = cam.device
-    if isinstance(gaussians, GaussianData):
-        gaussians = from_gaussian_data(gaussians, device=dev)
-    if cfg is None:
-        cfg = default_raster_config(gaussians.capacity)
-    degree = gaussians.sh_degree if sh_degree is None else sh_degree
-    params = gaussians.params
-    kwargs = dict(
-        scales=torch.exp(params["scaling"]),
-        quats=params["rotation"],
-        scale_modifier=scaling_modifier,
-        alive=gaussians.alive,
-        cfg=cfg,
-    )
-    if override_color is not None:
-        kwargs["colors_precomp"] = override_color
-    else:
-        kwargs["shs"] = torch.cat([params["f_dc"], params["f_rest"]], dim=1)
-        kwargs["sh_degree"] = degree
-    out = rasterize_surfel(
-        params["xyz"], torch.sigmoid(params["opacity"][:, 0]), cam,
-        torch.as_tensor(bg, dtype=torch.float32, device=dev), **kwargs,
-    )
-    render_normal, surf_depth, surf_normal = surfel_maps(out, cam, depth_ratio)
-    return {
-        "render": out.color,
-        "radii": out.radii,
-        "visibility_filter": out.radii > 0,
-        "render_alpha": out.alpha,
-        "render_normal": render_normal,
-        "render_dist": out.distortion,
-        "render_depth": surf_depth,
-        "surf_normal": surf_normal,
-        "num_dropped_keys": out.num_dropped_keys,
-        "num_dropped_tail": out.num_dropped_tail,
-    }
+    with span("render"):
+        if isinstance(gaussians, GaussianData):
+            gaussians = from_gaussian_data(gaussians, device=dev)
+        if cfg is None:
+            cfg = default_raster_config(gaussians.capacity)
+        degree = gaussians.sh_degree if sh_degree is None else sh_degree
+        params = gaussians.params
+        kwargs = dict(
+            scales=torch.exp(params["scaling"]),
+            quats=params["rotation"],
+            scale_modifier=scaling_modifier,
+            alive=gaussians.alive,
+            cfg=cfg,
+        )
+        if override_color is not None:
+            kwargs["colors_precomp"] = override_color
+        else:
+            kwargs["shs"] = torch.cat([params["f_dc"], params["f_rest"]], dim=1)
+            kwargs["sh_degree"] = degree
+        out = rasterize_surfel(
+            params["xyz"], torch.sigmoid(params["opacity"][:, 0]), cam,
+            torch.as_tensor(bg, dtype=torch.float32, device=dev), **kwargs,
+        )
+        render_normal, surf_depth, surf_normal = surfel_maps(out, cam, depth_ratio)
+        return {
+            "render": out.color,
+            "radii": out.radii,
+            "visibility_filter": out.radii > 0,
+            "render_alpha": out.alpha,
+            "render_normal": render_normal,
+            "render_dist": out.distortion,
+            "render_depth": surf_depth,
+            "surf_normal": surf_normal,
+            "num_dropped_keys": out.num_dropped_keys,
+            "num_dropped_tail": out.num_dropped_tail,
+        }

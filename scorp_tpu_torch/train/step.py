@@ -33,6 +33,7 @@ from ..core.camera import Camera
 from ..ops.losses import l1_loss, ssim
 from ..ops.raster import RasterConfig, rasterize
 from .densify import accumulate_stats
+from ..utils.trace import span
 from .state import AdamState, GaussianState, adam_update, expon_lr
 
 
@@ -132,83 +133,84 @@ def train_step(
     has_depth_cam: bool = False,
     has_depth_est: bool = False,
     frozen: tuple[str, ...] = (),
-    stage_hook=None,
 ):
     """One step on the camera's device -> (state, adam, StepMetrics). The
     inputs are not modified: the step returns new parameter, moment and
     statistics tensors (at 250k gaussians they are ~60 MB in all, so
-    updating in place would save little). `stage_hook`, if given, is called
-    with "forward" once the loss is formed and with "backward" once the
-    gradients are, e.g. to record CUDA events between the three parts."""
+    updating in place would save little). Its parts are the spans
+    `step.forward` (with `step.loss`), `step.backward` and `step.update`
+    (`utils/trace.py`)."""
     alive = state.alive
     cap = state.capacity
     dev = alive.device
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
     deltas = torch.zeros(cap, 2, device=dev, requires_grad=True)
 
-    out = rasterize(
-        params["xyz"],
-        torch.sigmoid(params["opacity"][:, 0]),
-        cam,
-        bg,
-        shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1),
-        sh_degree=sh_degree,
-        scales=torch.exp(params["scaling"]),
-        quats=params["rotation"],
-        screen_deltas=deltas,
-        alive=alive,
-        cfg=cfg,
-    )
-    image = out.color
-    ll1 = l1_loss(image, gt_image)
-    loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - ssim(image, gt_image))
+    with span("step.forward"):
+        out = rasterize(
+            params["xyz"],
+            torch.sigmoid(params["opacity"][:, 0]),
+            cam,
+            bg,
+            shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1),
+            sh_degree=sh_degree,
+            scales=torch.exp(params["scaling"]),
+            quats=params["rotation"],
+            screen_deltas=deltas,
+            alive=alive,
+            cfg=cfg,
+        )
+        with span("step.loss"):
+            image = out.color
+            ll1 = l1_loss(image, gt_image)
+            loss = ((1.0 - opt.lambda_dssim) * ll1
+                    + opt.lambda_dssim * (1.0 - ssim(image, gt_image)))
 
-    depth_loss = torch.zeros((), device=dev)
-    if iteration > opt.depth_from_iter:
-        one = torch.ones((), device=dev)
-        rend_depth = out.depth_accum / torch.where(out.alpha == 0.0, one, out.alpha)
-        rend_depth = torch.nan_to_num(rend_depth, nan=0.0, posinf=0.0, neginf=0.0)
-        if has_depth_cam:
-            m = (gt_depth_cam > 0.3) & (gt_depth_cam < 7.0) & (rend_depth > 0.0)
-            depth_loss = depth_loss + opt.lambda_depth_sensor * _masked_mean(
-                (rend_depth - gt_depth_cam).abs(), m)
-        if has_depth_est:
-            w = expon_lr(float(iteration), opt.dn_l1_weight_init, opt.dn_l1_weight_final,
-                         opt.iterations)
-            m = (rend_depth > 0.0) & (gt_depth_est > 0.0)
-            pn = _masked_minmax_normalize(gt_depth_est, m)
-            rn = _masked_minmax_normalize(rend_depth, m)
-            depth_loss = depth_loss + 10.0 * w * _masked_mean((rn - pn).abs(), m)
-    if opt.lambda_isotropic > 0:
-        after_warmup = float(iteration > opt.depth_from_iter)
-        loss = loss + after_warmup * opt.lambda_isotropic * isotropic(params["scaling"], alive)
-    loss = loss + depth_loss
-    if stage_hook is not None:
-        stage_hook("forward")
+            depth_loss = torch.zeros((), device=dev)
+            if iteration > opt.depth_from_iter:
+                one = torch.ones((), device=dev)
+                rend_depth = out.depth_accum / torch.where(out.alpha == 0.0, one, out.alpha)
+                rend_depth = torch.nan_to_num(rend_depth, nan=0.0, posinf=0.0, neginf=0.0)
+                if has_depth_cam:
+                    m = (gt_depth_cam > 0.3) & (gt_depth_cam < 7.0) & (rend_depth > 0.0)
+                    depth_loss = depth_loss + opt.lambda_depth_sensor * _masked_mean(
+                        (rend_depth - gt_depth_cam).abs(), m)
+                if has_depth_est:
+                    w = expon_lr(float(iteration), opt.dn_l1_weight_init,
+                                 opt.dn_l1_weight_final, opt.iterations)
+                    m = (rend_depth > 0.0) & (gt_depth_est > 0.0)
+                    pn = _masked_minmax_normalize(gt_depth_est, m)
+                    rn = _masked_minmax_normalize(rend_depth, m)
+                    depth_loss = depth_loss + 10.0 * w * _masked_mean((rn - pn).abs(), m)
+            if opt.lambda_isotropic > 0:
+                after_warmup = float(iteration > opt.depth_from_iter)
+                loss = loss + after_warmup * opt.lambda_isotropic * isotropic(
+                    params["scaling"], alive)
+            loss = loss + depth_loss
 
     keys = list(params)
-    grads = torch.autograd.grad(loss, [params[k] for k in keys] + [deltas])
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, [params[k] for k in keys] + [deltas])
     param_grads, delta_grads = dict(zip(keys, grads[:-1])), grads[-1]
-    if stage_hook is not None:
-        stage_hook("backward")
 
-    # densification statistics (only while densification is active)
-    if iteration < opt.densify_until_iter:
-        state = accumulate_stats(state, delta_grads, out.radii)
+    with span("step.update"):
+        # densification statistics (only while densification is active)
+        if iteration < opt.densify_until_iter:
+            state = accumulate_stats(state, delta_grads, out.radii)
 
-    # Adam step, skipped on the final iteration as in the reference. Dead
-    # (and frozen) rows get a torch.where SELECT of 0, never a multiply:
-    # their cotangents can be NaN (0 x inf through guarded divisions), and
-    # NaN * 0 is NaN; selecting 0 is exact and keeps dead slots finite.
-    if iteration < opt.iterations:
-        keep_row = alive & (torch.arange(cap, device=dev) >= freeze_rows)
-        param_grads = {
-            k: torch.where(keep_row.reshape((cap,) + (1,) * (g.ndim - 1)), g, 0.0)
-            for k, g in param_grads.items()
-        }
-        new_params, adam = adam_update(state.params, param_grads, adam,
-                                       compute_lrs(opt, iteration), frozen=frozen)
-        state = state._replace(params=new_params)
+        # Adam step, skipped on the final iteration as in the reference. Dead
+        # (and frozen) rows get a torch.where SELECT of 0, never a multiply:
+        # their cotangents can be NaN (0 x inf through guarded divisions), and
+        # NaN * 0 is NaN; selecting 0 is exact and keeps dead slots finite.
+        if iteration < opt.iterations:
+            keep_row = alive & (torch.arange(cap, device=dev) >= freeze_rows)
+            param_grads = {
+                k: torch.where(keep_row.reshape((cap,) + (1,) * (g.ndim - 1)), g, 0.0)
+                for k, g in param_grads.items()
+            }
+            new_params, adam = adam_update(state.params, param_grads, adam,
+                                           compute_lrs(opt, iteration), frozen=frozen)
+            state = state._replace(params=new_params)
 
     with torch.no_grad():
         mse = ((image.clamp(0.0, 1.0) - gt_image.clamp(0.0, 1.0)) ** 2).mean()

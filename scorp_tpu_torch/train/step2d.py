@@ -26,6 +26,7 @@ from ..core.camera import Camera
 from ..ops.losses import l1_loss, ssim
 from ..ops.raster import RasterConfig, rasterize_surfel
 from ..ops.raster.surfel import depth_to_normal, surfel_maps
+from ..utils.trace import span
 from .densify import accumulate_stats
 from .state import AdamState, GaussianState, adam_update, expon_lr
 from .step import (OptParams, StepMetrics, _masked_mean, _masked_minmax_normalize, compute_lrs,
@@ -64,88 +65,88 @@ def train_step_2d(
     has_depth_cam: bool = False,
     has_depth_est: bool = False,
     frozen: tuple[str, ...] = (),
-    stage_hook=None,
 ):
     """One step on the camera's device -> (state, adam, StepMetrics), as
-    `train_step` (the inputs are not modified; `stage_hook` is called with
-    "forward" once the loss is formed and with "backward" once the
-    gradients are)."""
+    `train_step` (the inputs are not modified; the same spans)."""
     alive = state.alive
     cap = state.capacity
     dev = alive.device
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
     deltas = torch.zeros(cap, 2, device=dev, requires_grad=True)
 
-    out = rasterize_surfel(
-        params["xyz"],
-        torch.sigmoid(params["opacity"][:, 0]),
-        cam,
-        bg,
-        shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1),
-        sh_degree=sh_degree,
-        scales=torch.exp(params["scaling"]),
-        quats=params["rotation"],
-        screen_deltas=deltas,
-        alive=alive,
-        cfg=cfg,
-    )
-    image = out.color
-    rend_normal, rend_depth, surf_normal = surfel_maps(out, cam, opt.depth_ratio)
-    ll1 = l1_loss(image, gt_image)
-    loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - ssim(image, gt_image))
+    with span("step.forward"):
+        out = rasterize_surfel(
+            params["xyz"],
+            torch.sigmoid(params["opacity"][:, 0]),
+            cam,
+            bg,
+            shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1),
+            sh_degree=sh_degree,
+            scales=torch.exp(params["scaling"]),
+            quats=params["rotation"],
+            screen_deltas=deltas,
+            alive=alive,
+            cfg=cfg,
+        )
+        image = out.color
+        rend_normal, rend_depth, surf_normal = surfel_maps(out, cam, opt.depth_ratio)
+        with span("step.loss"):
+            ll1 = l1_loss(image, gt_image)
+            loss = ((1.0 - opt.lambda_dssim) * ll1
+                    + opt.lambda_dssim * (1.0 - ssim(image, gt_image)))
 
-    depth_loss = torch.zeros((), device=dev)
-    if iteration > opt.depth_from_iter:
-        if has_depth_cam:
-            m = (gt_depth_cam > 0.3) & (gt_depth_cam < 7.0) & (rend_depth > 0.0)
-            depth_loss = depth_loss + opt.lambda_depth_sensor * _masked_mean(
-                (rend_depth - gt_depth_cam).abs(), m)
-        if has_depth_est:
-            w = expon_lr(float(iteration), opt.dn_l1_weight_init, opt.dn_l1_weight_final,
-                         opt.iterations)
-            m = (rend_depth > 0.0) & (gt_depth_est > 0.0)
-            pn = _masked_minmax_normalize(gt_depth_est, m)
-            rn = _masked_minmax_normalize(rend_depth, m)
-            depth_loss = depth_loss + 10.0 * w * _masked_mean((rn - pn).abs(), m)
-            if iteration > opt.depth_from_iter + 1000:
-                # depth-normal consistency after an extra 1000-iteration warmup
-                pred_normal = depth_to_normal(cam, gt_depth_est).detach()
-                dn = (1.0 - (surf_normal * pred_normal).sum(dim=0)).mean()
-                rn_loss = (1.0 - (rend_normal * pred_normal).sum(dim=0)).mean()
-                depth_loss = depth_loss + w * (dn + rn_loss)
-    # the reference adds the isotropic term only inside the depth_est
-    # branch (train_2dgs.py loss nesting); weighted, not skipped (see step.py)
-    if has_depth_est and opt.lambda_isotropic > 0:
-        after_warmup = float(iteration > opt.depth_from_iter)
-        loss = loss + after_warmup * opt.lambda_isotropic * isotropic(params["scaling"], alive)
-    total = loss + depth_loss
-    if iteration > 7000 and opt.lambda_normal != 0.0:
-        total = total + opt.lambda_normal * (1.0 - (rend_normal * surf_normal).sum(dim=0)).mean()
-    if iteration > 3000 and opt.lambda_dist != 0.0:
-        total = total + opt.lambda_dist * out.distortion.mean()
-    if stage_hook is not None:
-        stage_hook("forward")
+            depth_loss = torch.zeros((), device=dev)
+            if iteration > opt.depth_from_iter:
+                if has_depth_cam:
+                    m = (gt_depth_cam > 0.3) & (gt_depth_cam < 7.0) & (rend_depth > 0.0)
+                    depth_loss = depth_loss + opt.lambda_depth_sensor * _masked_mean(
+                        (rend_depth - gt_depth_cam).abs(), m)
+                if has_depth_est:
+                    w = expon_lr(float(iteration), opt.dn_l1_weight_init,
+                                 opt.dn_l1_weight_final, opt.iterations)
+                    m = (rend_depth > 0.0) & (gt_depth_est > 0.0)
+                    pn = _masked_minmax_normalize(gt_depth_est, m)
+                    rn = _masked_minmax_normalize(rend_depth, m)
+                    depth_loss = depth_loss + 10.0 * w * _masked_mean((rn - pn).abs(), m)
+                    if iteration > opt.depth_from_iter + 1000:
+                        # depth-normal consistency after an extra 1000-iteration warmup
+                        pred_normal = depth_to_normal(cam, gt_depth_est).detach()
+                        dn = (1.0 - (surf_normal * pred_normal).sum(dim=0)).mean()
+                        rn_loss = (1.0 - (rend_normal * pred_normal).sum(dim=0)).mean()
+                        depth_loss = depth_loss + w * (dn + rn_loss)
+            # the reference adds the isotropic term only inside the depth_est
+            # branch (train_2dgs.py loss nesting); weighted, not skipped (see step.py)
+            if has_depth_est and opt.lambda_isotropic > 0:
+                after_warmup = float(iteration > opt.depth_from_iter)
+                loss = loss + after_warmup * opt.lambda_isotropic * isotropic(
+                    params["scaling"], alive)
+            total = loss + depth_loss
+            if iteration > 7000 and opt.lambda_normal != 0.0:
+                total = total + opt.lambda_normal * (
+                    1.0 - (rend_normal * surf_normal).sum(dim=0)).mean()
+            if iteration > 3000 and opt.lambda_dist != 0.0:
+                total = total + opt.lambda_dist * out.distortion.mean()
 
     keys = list(params)
-    grads = torch.autograd.grad(total, [params[k] for k in keys] + [deltas])
+    with span("step.backward"):
+        grads = torch.autograd.grad(total, [params[k] for k in keys] + [deltas])
     param_grads, delta_grads = dict(zip(keys, grads[:-1])), grads[-1]
-    if stage_hook is not None:
-        stage_hook("backward")
 
-    if iteration < opt.densify_until_iter:
-        state = accumulate_stats(state, delta_grads, out.radii)
+    with span("step.update"):
+        if iteration < opt.densify_until_iter:
+            state = accumulate_stats(state, delta_grads, out.radii)
 
-    # Adam step, skipped on the final iteration; dead and frozen rows get a
-    # torch.where SELECT of 0, never a multiply (see train_step)
-    if iteration < opt.iterations:
-        keep_row = alive & (torch.arange(cap, device=dev) >= freeze_rows)
-        param_grads = {
-            k: torch.where(keep_row.reshape((cap,) + (1,) * (g.ndim - 1)), g, 0.0)
-            for k, g in param_grads.items()
-        }
-        new_params, adam = adam_update(state.params, param_grads, adam,
-                                       compute_lrs(opt, iteration), frozen=frozen)
-        state = state._replace(params=new_params)
+        # Adam step, skipped on the final iteration; dead and frozen rows get a
+        # torch.where SELECT of 0, never a multiply (see train_step)
+        if iteration < opt.iterations:
+            keep_row = alive & (torch.arange(cap, device=dev) >= freeze_rows)
+            param_grads = {
+                k: torch.where(keep_row.reshape((cap,) + (1,) * (g.ndim - 1)), g, 0.0)
+                for k, g in param_grads.items()
+            }
+            new_params, adam = adam_update(state.params, param_grads, adam,
+                                           compute_lrs(opt, iteration), frozen=frozen)
+            state = state._replace(params=new_params)
 
     with torch.no_grad():
         mse = ((image.clamp(0.0, 1.0) - gt_image.clamp(0.0, 1.0)) ** 2).mean()
