@@ -16,14 +16,17 @@ Phases, in order (any failure exits non-zero):
      scene's PLY, then render the test views through
      `scorp_tpu_torch.apps.render_3dgs.main` on cuda. Checks the PNGs, zero
      dropped keys, a non-empty frame, and that K1 and K2's launch counters
-     rose during that run (and the key sort's, once per K1).
+     rose during that run (the key sort's once per K1, the fused
+     preprocess's once per frame).
   3. kernel vs plain version on identical inputs at 50k / 800x600: K1
      (every key slot and kept identical, without and with the cull, with
      the keys' own width and with 64-bit keys); K2 on one stream (color,
      alpha and depth/alpha within max 5e-3 and mean 1e-5; n_contrib equal
      on >= 99.9% of pixels); a 2k-Gaussian
      render on the GPU against the plain path on the CPU.
-  4. at full width, on the eval path's inputs: the same K1 and K2 checks,
+  4. at full width, on the eval path's inputs: the fused preprocess against
+     its plain version (every field bit for bit) and its times; the same K1
+     and K2 checks,
      K1 against the expansion golden (0.8 golden <= kept <= golden + 1000),
      the keys-only sort against torch.sort on K1's keys and the route
      (gid, tile ranges, dropped) against the decode of the same keys
@@ -242,7 +245,11 @@ Phases, in order (any failure exits non-zero):
      step on the card and on the CPU's plain versions: the loss within
      1e-5 relative, every parameter and moment column within 1e-4 x its
      largest (K3's atomics rule); each path's time and a snapshot's bytes.
-The kernels are printed as one {"kernels": [...]} JSON line: K1-K3 with
+Every phase holds the fused preprocess's launches to its tally with
+K1-K6's: one per 3DGS render without grad, none in a training step.
+The kernels are printed as one {"kernels": [...]} JSON line: the fused
+preprocess (P) with its launches in phase 2's eval run, phase 6's
+evaluations and phases 12-16, and its times from phase 4; K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
 2DGS eval run of phase 8, K5 and K6 with theirs in the 2DGS training run of
@@ -302,7 +309,8 @@ def gpu_line() -> str:
 def ptxas_lines(text: str):
     """(kernel, line) for each register and spill line of nvcc's
     `-Xptxas -v` report, the kernel named from the entry function that
-    precedes it (its template argument kept, e.g. <1> for K5)."""
+    precedes it (its template argument kept, e.g. <1> for K5, <3> for the
+    fused preprocess at SH degree 3)."""
     kernel = "?"
     for line in text.splitlines():
         if "entry function '_ZN" in line:
@@ -317,6 +325,9 @@ def ptxas_lines(text: str):
             key = re.match(r"I([jy])E", line[i:])  # K1's key type
             if key:
                 kernel += {"j": "<u32>", "y": "<u64>"}[key.group(1)]
+            deg = re.match(r"ILi(n?)(\d+)EE", line[i:])  # the fused preprocess's SH degree
+            if deg:
+                kernel += f"<{'-' if deg.group(1) else ''}{deg.group(2)}>"
         elif "registers" in line or "spill" in line:
             yield kernel, line.strip()
 
@@ -785,10 +796,11 @@ def device_camera(width: int, height: int, device):
 def prep_of(arrays, cam, device):
     import torch
 
-    from scorp_tpu_torch.ops.raster import preprocess
+    from scorp_tpu_torch.ops.raster import preprocess_kernel
 
     xyz, shs, scales, quats, opacity = (torch.as_tensor(a, device=device) for a in arrays)
-    return preprocess(xyz, opacity, cam, shs=shs, sh_degree=3, scales=scales, quats=quats)
+    return preprocess_kernel(xyz, opacity, cam, shs=shs, sh_degree=3, scales=scales,
+                             quats=quats)
 
 
 def phase_full_width(args, device):
@@ -799,6 +811,7 @@ def phase_full_width(args, device):
     from scorp_tpu_torch.apps import render_3dgs
     from scorp_tpu_torch.ops.raster.composite import composite
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.fused_preprocess import preprocess_kernel
     from scorp_tpu_torch.ops.raster.sort import sort_keys
 
     scene_dir = os.path.join(WORK, "scene")
@@ -810,13 +823,14 @@ def phase_full_width(args, device):
     argv = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml",
             "--not_render_baseline", "--device", str(device)]
     expand_keys.launches = sort_keys.launches = composite.launches = 0
+    preprocess_kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = render_3dgs.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"expand": expand_keys.launches, "sort": sort_keys.launches,
-                "composite": composite.launches}
+    launches = {"preprocess": preprocess_kernel.launches, "expand": expand_keys.launches,
+                "sort": sort_keys.launches, "composite": composite.launches}
     peak = torch.cuda.max_memory_allocated()
 
     records = results[os.path.join(model_dir, "rendered_refined")]
@@ -840,6 +854,8 @@ def phase_full_width(args, device):
     check(launches["expand"] > 0 and launches["composite"] > 0,
           "both kernels launched on the main path")
     check(launches["sort"] == launches["expand"], "the keys-only sort ran once per expansion")
+    check(launches["preprocess"] == launches["composite"],
+          "the fused preprocess ran once per eval frame")
     return scene_dir, model_dir, launches, peak
 
 
@@ -901,6 +917,8 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     from scorp_tpu_torch.ops.raster.expand import (
         expand_inputs, expand_keys, expand_keys_plain,
     )
+    from scorp_tpu_torch.ops.raster.common import preprocess_plain
+    from scorp_tpu_torch.ops.raster.fused_preprocess import preprocess_kernel
     from scorp_tpu_torch.ops.raster.sort import sort_keys
     from scorp_tpu_torch.render import default_raster_config, render
     from scorp_tpu_torch.scene import Scene
@@ -922,16 +940,30 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     print(f"  full frame through render(): {frame_ms:.3f} ms (CUDA-event median of 5)")
 
     p = state.params
-    from scorp_tpu_torch.ops.raster import preprocess
 
     def prep_fn():
-        return preprocess(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
-                          shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
-                          scales=torch.exp(p["scaling"]), quats=p["rotation"],
-                          alive=state.alive)
+        return preprocess_kernel(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
+                                 shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
+                                 scales=torch.exp(p["scaling"]), quats=p["rotation"],
+                                 alive=state.alive)
 
     prep = prep_fn()
     n = prep.xy.shape[0]
+    # the fused preprocess against its plain version on render()'s inputs
+    pre_in = (p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam)
+    pre_kw = dict(shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
+                  scales=torch.exp(p["scaling"]), quats=p["rotation"], alive=state.alive)
+    pre_err = check_preprocess(preprocess_kernel(*pre_in, **pre_kw),
+                               preprocess_plain(*pre_in, **pre_kw), "full width")
+    pre_ms = kernel_ms(lambda: preprocess_kernel(*pre_in, **pre_kw), "::preprocess_kernel<")
+    pre_call_ms = cuda_ms(lambda: preprocess_kernel(*pre_in, **pre_kw), 20)
+    pre_plain_ms = cuda_ms(lambda: preprocess_plain(*pre_in, **pre_kw), 5)
+    # bytes: per row the inputs read (xyz 12, opacity 4, scales 12, quats 16,
+    # 16 SH bands 192, alive 1) and the outputs written (xy 8, depth 4, conic
+    # 12, color 12, radii 4, rect 16, valid 1), and the camera's 37 floats;
+    # its few hundred f32 operations a row take a tenth of that time
+    pre_bytes = n * (237 + 57) + 37 * 4
+    pre_bound = pre_bytes / HBM_BYTES_PER_S
     x = expand_inputs(prep, w, h, cfg.max_keys, cull=True)
     k1_err = check_expand(x, "full width")
     check_route(x, route_stream(prep, w, h, cfg), cfg, "full-width eval stream")
@@ -1021,10 +1053,15 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
           f"{1e3 * max(k2_bytes_s, k2_ops_s):.4f} ms ({streamed} streamed keys, "
           f"{pairs} (pixel, key) pairs up to n_contrib at {K2_FLOPS_PER_PAIR} ops each, the "
           f"bound's fixed formula, {n_tiles} tiles)")
+    print(f"  fused preprocess: {pre_ms:.4f} ms ({pre_call_ms:.4f} per call), plain "
+          f"{pre_plain_ms:.3f} ms, bound {1e3 * pre_bound:.4f} ms ({n} rows at SH degree 3, "
+          f"{pre_bytes} bytes)")
     print_slots({"K2": slots["K2"]})
     return {
         "frame_ms": frame_ms,
         "stages": stages,
+        "preprocess": dict(ms=pre_ms, ms_per_call=pre_call_ms, plain_ms=pre_plain_ms,
+                           bound_ms=1e3 * pre_bound, bound_by="bytes", err=pre_err, rows=n),
         "k1": dict(ms=k1_ms, ms_per_call=k1_call_ms, plain_ms=k1_plain_ms,
                    bound_ms=1e3 * k1_bound, bound_by=k1_bound_by, kept=kept, golden=golden,
                    err=k1_err, bound_ms_int64_keys=1e3 * k1_bound_int64,
@@ -1037,6 +1074,26 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
                    slots=slots["K2"], bound_ms=1e3 * max(k2_bytes_s, k2_ops_s),
                    bound_by="bytes" if k2_bytes_s >= k2_ops_s else "operations"),
     }
+
+
+def check_preprocess(got, ref, label: str) -> float:
+    """The fused preprocess's outputs against its plain version's: every
+    field of `Preprocessed` (radii, rect and valid too) equal bit for bit,
+    NaN where NaN. Returns the largest |diff| of the float fields."""
+    import torch
+
+    err = 0.0
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(ref, name)
+        if a.dtype == torch.float32 and a.shape == b.shape:
+            diff = torch.nan_to_num((a - b).abs(), nan=0.0)
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        if a.dtype == torch.float32:
+            a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+        same = a.shape == b.shape and bool(torch.equal(a, b))
+        check(same, f"fused preprocess {label}: {name} bit-equal to the plain version's"
+              + ("" if same or a.shape != b.shape else f" ({int((a != b).sum())} differ)"))
+    return err
 
 
 def backward_inputs(prep, width: int, height: int, cfg, seed: int, device):
@@ -1141,6 +1198,7 @@ def phase_train_app(args, device, scene_dir):
     from scorp_tpu_torch.ops.raster.backward import composite_backward
     from scorp_tpu_torch.ops.raster.composite import composite
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.fused_preprocess import preprocess_kernel
     from scorp_tpu_torch.ops.raster.sort import sort_keys
 
     model_dir = os.path.join(WORK, "train_model")
@@ -1154,14 +1212,15 @@ def phase_train_app(args, device, scene_dir):
             "--test_iterations", "1", str(iters), "--save_iterations", str(iters),
             "--opacity_cull", "0.005", "--device", str(device)]
     expand_keys.launches = sort_keys.launches = 0
-    composite.launches = composite_backward.launches = 0
+    composite.launches = composite_backward.launches = preprocess_kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, state, adam, log = train_3dgs.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"expand": expand_keys.launches, "sort": sort_keys.launches,
-                "composite": composite.launches, "backward": composite_backward.launches}
+    launches = {"preprocess": preprocess_kernel.launches, "expand": expand_keys.launches,
+                "sort": sort_keys.launches, "composite": composite.launches,
+                "backward": composite_backward.launches}
     peak = torch.cuda.max_memory_allocated()
     losses = log["loss"]
     n_alive = int(state.num_alive())
@@ -1174,6 +1233,9 @@ def phase_train_app(args, device, scene_dir):
     check(launches["expand"] > 0 and launches["composite"] > 0 and launches["backward"] > 0,
           "K1, K2 and K3 launched on the training path")
     check(launches["backward"] >= iters, f"K3 launched once per step ({launches['backward']})")
+    check(0 < launches["preprocess"] == launches["composite"] - launches["backward"],
+          "the fused preprocess ran once per evaluation render, in no training step "
+          f"({launches['preprocess']})")
     check(launches["sort"] == launches["expand"], "the keys-only sort ran once per expansion")
     check(len(losses) == iters and all(np.isfinite(losses)), "every step's loss is finite")
     for it, res in log["eval"]:
@@ -1203,10 +1265,10 @@ def phase_train_step(args, device):
 
     from scorp_tpu_torch.core.plyio import GaussianData
     from scorp_tpu_torch.ops.losses import l1_loss, ssim
-    from scorp_tpu_torch.ops.raster import preprocess
     from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
     from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
     from scorp_tpu_torch.ops.raster.expand import expand_inputs
+    from scorp_tpu_torch.ops.raster.fused_preprocess import preprocess_kernel
     from scorp_tpu_torch.render import tuned_raster_config
     from scorp_tpu_torch.train import OptParams, from_gaussian_data, init_adam, train_step
 
@@ -1232,11 +1294,12 @@ def phase_train_step(args, device):
 
     first = step()[2]
     check(int(first.num_dropped_keys) == 0, "first step: no dropped keys")
-    composite_backward.launches = composite.launches = 0
+    composite_backward.launches = composite.launches = preprocess_kernel.launches = 0
     last = step()[2]
     per_step = {"K2": composite.launches, "K3": composite_backward.launches}
     check(int(last.num_dropped_keys) == 0 and bool(torch.isfinite(last.loss)),
           f"last step: no dropped keys, loss {float(last.loss):.6f} finite")
+    check(preprocess_kernel.launches == 0, "the training step launches no fused preprocess")
 
     # the step between CUDA events, and its three parts from the program's
     # spans (step_parts_ms): medians of 10 steps after one warm-up step
@@ -1285,10 +1348,10 @@ def phase_train_step(args, device):
     # K3 on the step's own inputs (the routing of the step's forward)
     p = state.params
     with torch.no_grad():
-        prep = preprocess(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
-                          shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
-                          scales=torch.exp(p["scaling"]), quats=p["rotation"],
-                          alive=state.alive)
+        prep = preprocess_kernel(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
+                                 shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
+                                 scales=torch.exp(p["scaling"]), quats=p["rotation"],
+                                 alive=state.alive)
         k3_args, tiles_x, route, k2_out = backward_inputs(prep, w, h, cfg, args.seed + 5,
                                                           device)
         x = expand_inputs(prep, w, h, cfg.max_keys, cull=True)
@@ -1930,12 +1993,14 @@ ALIGN_ROUNDS = 4   # render-match-solve rounds of phase 12's align (the app's de
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel of the rasterizers (K1, the key sort, K2, K3, and
-    the surfel compositors K4-K6) to its plain PyTorch version, on whatever
-    device the tensors lie, so that a whole entry point can be held against
-    itself through the kernels. The plain versions count no launches: the
-    block fails if a kernel was launched inside it, as it would be if a
-    module looked a wrapper up by another name than these."""
+    """Route every kernel of the rasterizers (the fused preprocess, K1, the
+    key sort, K2, K3, and the surfel compositors K4-K6) to its plain PyTorch
+    version, on whatever device the tensors lie, so that a whole entry point
+    can be held against itself through the kernels. The plain versions count
+    no launches: the block fails if a kernel was launched inside it, as it
+    would be if a module looked a wrapper up by another name than these."""
+    import scorp_tpu_torch.pipeline.mask3d  # noqa: F401  (its projection votes preprocess)
+
     before = kernel_launches()
     mods = sys.modules
     raster = mods["scorp_tpu_torch.ops.raster"]
@@ -1945,14 +2010,17 @@ def plain_kernels():
     bw = mods["scorp_tpu_torch.ops.raster.backward"]
     sc = mods["scorp_tpu_torch.ops.raster.surfel_composite"]
     sb = mods["scorp_tpu_torch.ops.raster.surfel_backward"]
+    m3 = mods["scorp_tpu_torch.pipeline.mask3d"]
     names = ("composite", "composite_backward", "surfel_composite", "surfel_composite_train",
-             "surfel_backward")
-    saved = tuple(getattr(raster, k) for k in names) + (ex.expand_keys, so.sort_keys)
+             "surfel_backward", "preprocess_kernel")
+    saved = tuple(getattr(raster, k) for k in names) + (ex.expand_keys, so.sort_keys,
+                                                        m3.preprocess_kernel)
     raster.composite = co.composite_plain
     raster.composite_backward = bw.composite_backward_plain
     raster.surfel_composite = sc.surfel_composite_plain
     raster.surfel_composite_train = functools.partial(sc.surfel_composite_plain, train=True)
     raster.surfel_backward = sb.surfel_backward_plain
+    raster.preprocess_kernel = m3.preprocess_kernel = raster.preprocess_plain
     ex.expand_keys = ex.expand_keys_plain
     so.sort_keys = lambda keys, end_bit: so.sort_keys_plain(keys)
     try:
@@ -1960,7 +2028,7 @@ def plain_kernels():
     finally:
         for k, fn in zip(names, saved):
             setattr(raster, k, fn)
-        ex.expand_keys, so.sort_keys = saved[-2:]
+        ex.expand_keys, so.sort_keys, m3.preprocess_kernel = saved[-3:]
     check(kernel_launches() == before, "the plain versions' pass launched no kernel")
 
 
@@ -1968,20 +2036,23 @@ def _wrappers() -> dict:
     from scorp_tpu_torch.ops.raster.backward import composite_backward
     from scorp_tpu_torch.ops.raster.composite import composite
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.fused_preprocess import preprocess_kernel
     from scorp_tpu_torch.ops.raster.sort import sort_keys
     from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward
     from scorp_tpu_torch.ops.raster.surfel_composite import (
         surfel_composite, surfel_composite_train,
     )
 
-    return {"expand": expand_keys, "sort": sort_keys, "composite": composite,
-            "backward": composite_backward, "surfel_composite": surfel_composite,
+    return {"preprocess": preprocess_kernel, "expand": expand_keys, "sort": sort_keys,
+            "composite": composite, "backward": composite_backward,
+            "surfel_composite": surfel_composite,
             "surfel_composite_train": surfel_composite_train,
             "surfel_backward": surfel_backward}
 
 
 def kernel_launches() -> dict:
-    """Every kernel wrapper's launch count (K1, the sort, K2-K6)."""
+    """Every kernel wrapper's launch count (the fused preprocess, K1, the
+    sort, K2-K6)."""
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
@@ -2475,9 +2546,9 @@ def phase_scorp(args, device):
           f"{icp['seconds']:.3f} s with {icp['syncs']} host syncs; launches {launches['align']}")
     print_rounds(rounds, "SIFT")
     check(current["matcher"] == "SIFTMatcher", "align's default matcher is the port's SIFT")
-    check(launches["align"] == launches_of(expand=renders[0], sort=renders[0],
-                                           composite=renders[0]),
-          f"one K1, sort and K2 per alignment render ({renders[0]})")
+    check(launches["align"] == launches_of(preprocess=renders[0], expand=renders[0],
+                                           sort=renders[0], composite=renders[0]),
+          f"one fused preprocess, K1, sort and K2 per alignment render ({renders[0]})")
     solved = [it for it, log in sorted(rounds.items())
               if log["lifted"] >= 3 and log["ransac"] + log["adam"] > 0]
     check(len(solved) >= 1, f"rounds {solved} lifted >= 3 SIFT correspondences into "
@@ -2613,8 +2684,9 @@ def phase_scorp(args, device):
             check(rgba.shape == (args.height, args.width, 4) and rgba[..., 3].any(),
                   f"{os.path.basename(out_dir)}/{r['image']}.png: RGBA, object visible")
             n_png += 1
-    check(launches["render"]["expand"] == launches["render"]["composite"] == n_png,
-          f"one K1 and K2 per eval view ({n_png})")
+    check(launches["render"]["preprocess"] == launches["render"]["expand"]
+          == launches["render"]["composite"] == n_png,
+          f"one fused preprocess, K1 and K2 per eval view ({n_png})")
 
     # refine_step alone at full width: time, device busy, host syncs
     r_state = from_gaussian_data(aligned, device=device)
@@ -2642,7 +2714,7 @@ def phase_scorp(args, device):
     wall = time.perf_counter() - t_phase
     print(f"  phase wall {wall:.2f} s")
     totals = {k: sum(v[k] for v in launches.values())
-              for k in ("expand", "sort", "composite", "backward")}
+              for k in ("preprocess", "expand", "sort", "composite", "backward")}
     return totals, {
         "launches_by_stage": launches, "vote_ms": vote_ms, "vote_err": vote_errs,
         "icp_s": icp["seconds"], "icp_syncs": icp["syncs"], "ransac_ms": ransac_ms,
@@ -2853,9 +2925,9 @@ def phase_scorp2d(args, device):
                                                   hc.image_name + ".png")).any())
                  for hc in scene.get_train_cameras())
     check(ns == n_seen and npx > 0 and launches["align"] == launches_of(
-        expand=ns + npx, sort=ns + npx, surfel_composite=ns, composite=npx),
+        preprocess=npx, expand=ns + npx, sort=ns + npx, surfel_composite=ns, composite=npx),
         f"one K1, sort and K4 per scene-object render (one per train view that sees the "
-        f"object: {n_seen}), one K1, sort and K2 per proxy render ({npx})")
+        f"object: {n_seen}), one fused preprocess, K1, sort and K2 per proxy render ({npx})")
     solved = [it for it, log in sorted(rounds.items())
               if log["lifted"] >= 3 and log["ransac"] + log["adam"] > 0]
     check(len(solved) >= 1, f"rounds {solved} lifted >= 3 ORB correspondences into "
@@ -2960,8 +3032,8 @@ def phase_scorp2d(args, device):
           f"observed voxels {grid['observed']:.4f}; launches {launches['mesh']}")
     wall = time.perf_counter() - t_phase
     print(f"  phase wall {wall:.2f} s")
-    keys = ("expand", "sort", "composite", "surfel_composite", "surfel_composite_train",
-            "surfel_backward")
+    keys = ("preprocess", "expand", "sort", "composite", "surfel_composite",
+            "surfel_composite_train", "surfel_backward")
     scorp2d = {k: launches["segmentation"][k] + launches["align"][k] for k in keys}
     return scorp2d, launches["mesh"], {
         "launches_by_stage": launches, "vote_ms": vote_ms, "vote_err": vote_errs,
@@ -3257,8 +3329,8 @@ def viewer_round_trip(state, host_cam, cfg, bg, device, launches):
         gui.close()
     check(not thread.is_alive() and len(got.get("buf", b"")) == expected,
           f"the viewer client got {len(got.get('buf', b''))} of {expected} bytes")
-    check(launches["viewer"] == launches_of(expand=1, sort=1, composite=1),
-          "one K1, sort and K2 for the viewer's frame")
+    check(launches["viewer"] == launches_of(preprocess=1, expand=1, sort=1, composite=1),
+          "one fused preprocess, K1, sort and K2 for the viewer's frame")
     ref_cam = MiniCam(w, h, host_cam.fovy, host_cam.fovx, host_cam.znear, host_cam.zfar,
                       wvt, fpt)
     check(np.array_equal(got["cam"].world_view_transform, wvt)
@@ -3338,7 +3410,7 @@ def check_video(frame_dir: str, tag: str, width: int, height: int, device) -> di
         t0 = time.perf_counter()
         render_paths.create_videos(frame_dir, path, VIDEO_FPS, device=device)
         total = time.perf_counter() - t0
-    check(kernel_launches() == launches_of(), f"{tag}.mp4: the encoder launches none of K1-K6")
+    check(kernel_launches() == launches_of(), f"{tag}.mp4: the encoder launches no kernel")
     t0 = time.perf_counter()
     render_paths.create_videos(frame_dir, cpu_path, VIDEO_FPS, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -3431,8 +3503,8 @@ def phase_dp(args, device):
     torch.cuda.synchronize()
     launches["dp_render"] = kernel_launches()
     n = len(test)
-    check(launches["dp_render"] == launches_of(expand=n, sort=n, composite=n),
-          f"dp_render: one K1, sort and K2 per camera ({n})")
+    check(launches["dp_render"] == launches_of(preprocess=n, expand=n, sort=n, composite=n),
+          f"dp_render: one fused preprocess, K1, sort and K2 per camera ({n})")
     reset_launches()
     for i, c in enumerate(test):
         ref = render(c.to_torch(device), state3, bg, cfg=cfg)
@@ -3461,9 +3533,11 @@ def phase_dp(args, device):
             alphas.append(float(o["render_alpha"].mean()))
             save_img_u8(o["render"].cpu().numpy(), os.path.join(frame_dir, f"{i:03d}.png"))
         launches[tag] = kernel_launches()
-        check(launches[tag] == launches_of(expand=ORBIT_FRAMES, sort=ORBIT_FRAMES,
-                                           **{kernel: ORBIT_FRAMES}),
-              f"{tag}: one K1, sort and {'K4' if kernel != 'composite' else 'K2'} per frame")
+        pre = ORBIT_FRAMES if kernel == "composite" else 0  # the 3DGS path's preprocess
+        check(launches[tag] == launches_of(preprocess=pre, expand=ORBIT_FRAMES,
+                                           sort=ORBIT_FRAMES, **{kernel: ORBIT_FRAMES}),
+              f"{tag}: one K1, sort and "
+              f"{'K4' if kernel != 'composite' else 'fused preprocess and K2'} per frame")
         check(min(alphas) > 0, f"{tag}: every frame covers the scene (mean alpha "
               f"{min(alphas):.4f} .. {max(alphas):.4f})")
         with Image.open(os.path.join(frame_dir, "000.png")) as im:
@@ -3521,7 +3595,7 @@ def phase_dp(args, device):
           "lpips_proxy": cuda_ms(lambda: perceptual.lpips_proxy(a, b), 5),
           "lpips": cuda_ms(lambda: perceptual.lpips(a, b, w_dev), 3)}
     check(float(perceptual.lpips(a, b, w_dev)) > 0, "LPIPS at full width on the card is > 0")
-    check(kernel_launches() == launches_of(), "the metrics launch none of K1-K6")
+    check(kernel_launches() == launches_of(), "the metrics launch no kernel")
     print(f"  metrics per {args.width}x{args.height} image on the card, ms (CUDA-event "
           f"medians): {json.dumps({k: round(v, 4) for k, v in ms.items()})}; evaluate_dirs "
           f"{metrics_s:.3f} s for 2 images")
@@ -3749,9 +3823,10 @@ def phase_long_training(args, device):
     info = densify_scale_run.build_dataset(scene_dir, device=device)
     launches["gt"] = kernel_launches()
     n_views, renders = info["views"], info["renders"]
-    check(launches["gt"] == launches_of(expand=renders, sort=renders, composite=renders)
-          and renders >= n_views, f"{n_views} GT views in {renders} renders, one K1, sort and "
-          "K2 each")
+    check(launches["gt"] == launches_of(preprocess=renders, expand=renders, sort=renders,
+                                        composite=renders)
+          and renders >= n_views, f"{n_views} GT views in {renders} renders, one fused "
+          "preprocess, K1, sort and K2 each")
     check(all(d == 0 for d in info["dropped_final"]),
           f"every GT image rendered with no dropped key (views dropping keys at the JAX "
           f"scripts' {JAX_GT_MAX_KEYS} key slots: "
@@ -3773,10 +3848,12 @@ def phase_long_training(args, device):
         [root, "--pilot", "--grad_threshold", "1e-4", "--device", str(device)])
     launches["pilot"] = kernel_launches()
     n_eval = len(scene.get_test_cameras()) + 5  # evaluate's test views and 5 train views
-    check(launches["pilot"] == launches_of(expand=iters + n_eval, sort=iters + n_eval,
-                                           composite=iters + n_eval, backward=iters),
+    check(launches["pilot"] == launches_of(preprocess=n_eval, expand=iters + n_eval,
+                                           sort=iters + n_eval, composite=iters + n_eval,
+                                           backward=iters),
           f"the pilot launched K1, the sort and K2 once per step and evaluation render "
-          f"({iters} + {n_eval}) and K3 once per step: {launches['pilot']}")
+          f"({iters} + {n_eval}), K3 once per step and the fused preprocess once per "
+          f"evaluation render: {launches['pilot']}")
     check_long_run(log, state, adam, iters, "3DGS pilot")
     rounds = log["densify"]
     check([r[0] for r in rounds] == list(range(600, iters + 1, 100)),
@@ -3810,8 +3887,9 @@ def phase_long_training(args, device):
             psnrs.append(-10.0 * np.log10(max(float(((img - gt) ** 2).mean()), 1e-12)))
     n_test = len(psnrs)
     launches["rerender"] = kernel_launches()
-    check(launches["rerender"] == launches_of(expand=n_test, sort=n_test, composite=n_test),
-          f"{n_test} re-renders, one K1, sort and K2 each")
+    check(launches["rerender"] == launches_of(preprocess=n_test, expand=n_test, sort=n_test,
+                                              composite=n_test),
+          f"{n_test} re-renders, one fused preprocess, K1, sort and K2 each")
     check(rerender_dropped == 0 and abs(float(np.mean(psnrs)) - test_psnr) <= 0.01,
           f"the PLY re-rendered on the {n_test} test views: PSNR {np.mean(psnrs):.4f} dB, "
           f"within 0.01 dB of the logged {test_psnr:.4f}, no key dropped")
@@ -4091,10 +4169,12 @@ def phase_nan_hunt(args, device, scene_dir: str, pilot_ms: float):
     check(rc["stage"] == rp["stage"] == "loss",
           f"the fault's step non-finite on both paths, first at the same stage, the loss: "
           f"card {rc['stage']}, CPU {rp['stage']}")
-    check(launches["replay"] == launches_of(expand=3, sort=3, composite=3, backward=1),
+    check(launches["replay"] == launches_of(preprocess=1, expand=3, sort=3, composite=3,
+                                            backward=1),
           f"the card's replay launched K1, the sort and K2 three times (the forward alone, the "
-          f"step, the step under anomaly detection) and K3 once (the anomaly pass stops in the "
-          f"SSIM's backward): {launches['replay']}")
+          f"step, the step under anomaly detection), K3 once (the anomaly pass stops in the "
+          f"SSIM's backward) and the fused preprocess once (the forward alone, under no_grad): "
+          f"{launches['replay']}")
     check(lc == lp and len(lc) >= 5, "both paths print the same near-degeneracy report")
     out["replay_fault"] = {"stage": rc["stage"], "card_s": tc, "cpu_s": tp}
     clean = []
@@ -4161,6 +4241,8 @@ def main(argv=None) -> int:
     from scorp_tpu_torch.ops.raster.composite import SOURCE as K2_SOURCE
     from scorp_tpu_torch.ops.raster.expand import REPLACES as K1_REPLACES
     from scorp_tpu_torch.ops.raster.expand import SOURCE as K1_SOURCE
+    from scorp_tpu_torch.ops.raster.fused_preprocess import REPLACES as P_REPLACES
+    from scorp_tpu_torch.ops.raster.fused_preprocess import SOURCE as P_SOURCE
     from scorp_tpu_torch.ops.raster.surfel_backward import REPLACES as K6_REPLACES
     from scorp_tpu_torch.ops.raster.surfel_backward import SOURCE as K6_SOURCE
     from scorp_tpu_torch.ops.raster.surfel_composite import REPLACES as K4_REPLACES
@@ -4297,6 +4379,16 @@ def main(argv=None) -> int:
         return {k: d[k] for k in ("ms", "ms_per_call", "plain_ms", "bound_ms", "bound_by")}
 
     kernels = [
+        {"name": "P fused preprocess", "route": "cuda", "source": P_SOURCE,
+         "replaces": P_REPLACES, "launches": launches["preprocess"],
+         "launches_train_evals": train_launches["preprocess"],
+         "max_abs_err": full["preprocess"]["err"], **timed(full["preprocess"]),
+         "library_ms": None, "rows": full["preprocess"]["rows"],
+         "launches_scorp": scorp_launches["preprocess"],
+         "launches_scorp2d": scorp2d_launches["preprocess"],
+         "launches_dp": dp_launches["preprocess"],
+         "launches_dp_checks": dp["check_launches"]["preprocess"],
+         "launches_long": long("preprocess"), "launches_nan": nan_stages("preprocess")},
         {"name": "K1 expand_keys", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": train_launches["expand"],
          "launches_eval": launches["expand"], "launches_2dgs": train2d_launches["expand"],

@@ -96,7 +96,8 @@ def camera_from_numpy(viewmatrix, projmatrix, fovx: float, fovy: float,
     dev = resolve_device(device)
 
     def f32(a):
-        return torch.as_tensor(np.array(a, np.float32), device=dev)
+        # C order: a transposed matrix would otherwise keep its strides
+        return torch.as_tensor(np.array(a, np.float32, order="C"), device=dev)
 
     return Camera(
         viewmatrix=f32(viewmatrix),

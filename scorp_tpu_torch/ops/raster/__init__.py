@@ -4,9 +4,11 @@
 of its packed int32 keys (int64 past 2^31, `sort.py`) -> stream gather ->
 forward compositor (K2). It dispatches on the tensors' device:
 the kernel wrappers launch the CUDA kernels for CUDA tensors and run their
-plain PyTorch versions for CPU tensors.
+plain PyTorch versions for CPU tensors. Preprocess is the fused kernel
+(`preprocess_kernel`) unless an input requires grad.
 
-When an input requires grad, preprocess is recorded by autograd, the
+When an input requires grad, preprocess runs as its plain version
+(`preprocess_plain`) and is recorded by autograd, the
 routing runs under no_grad on the detached result, and `_Composite` (a
 `torch.autograd.Function`) takes the per-gaussian table [N, 10]: its
 forward gathers the stream rows and runs K2 with n_contrib and t_final,
@@ -41,12 +43,13 @@ from .common import (  # noqa: F401
     StreamRouting,
     bin_stream,
     grid_dims,
-    preprocess,
+    preprocess_plain,
     route_stream,
     stream_table,
     tiles_cp_to_image,
 )
 from .composite import composite
+from .fused_preprocess import preprocess_kernel
 from .surfel import (  # noqa: F401
     SurfelOutput,
     SurfelPrep,
@@ -133,8 +136,10 @@ def rasterize(
 
     w, h = cam.width, cam.height
     tiles_x = grid_dims(w, h)[0]
+    # the kernel has no backward: autograd records the plain version
+    prep_fn = preprocess_plain if needs_grad else preprocess_kernel
     with torch.set_grad_enabled(needs_grad), span("raster.preprocess"):
-        prep = preprocess(
+        prep = prep_fn(
             means3d, opacities, cam,
             shs=shs, sh_degree=sh_degree, colors_precomp=colors_precomp,
             scales=scales, quats=quats, cov3d_precomp=cov3d_precomp,

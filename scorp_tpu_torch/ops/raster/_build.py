@@ -3,7 +3,7 @@
 Each source is compiled by `nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -fmad=false -shared -Xcompiler -fPIC` into `build/kernels/<name>-<hash>.so` at the root
 of the checkout, at first use, and loaded with ctypes (a plain C interface:
-pointers and the CUDA stream pass as void*, sizes as int, and each entry
+pointers and the CUDA stream pass as void*, sizes as int, scalars as float, and each entry
 point returns the cudaError_t of its launch). The hash covers the source
 and the flags, so an edited source is rebuilt. `build_all` starts one nvcc
 per source at once. A failed build raises; nothing falls back.
@@ -35,8 +35,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # C entry points of each source and their argument kinds: p = pointer or
-# stream, i = int, z = size_t
+# stream, i = int, z = size_t, f = float
 SIGNATURES = {
+    "preprocess": {"scorp_preprocess": "p" * 13 + "iiiii" + "f" + "p" * 8},
     "expand": {"scorp_expand_keys": "pppppiiiiiippp"},
     "sort": {"scorp_sort_keys_temp_bytes": "iiip", "scorp_sort_keys": "pppziiip"},
     "composite": {"scorp_composite": "ppppiipppppp"},
@@ -48,7 +49,8 @@ SIGNATURES = {
     "surfel_backward": {"scorp_surfel_backward": "p" * 17 + "iip"},
 }
 
-_ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "z": ctypes.c_size_t}
+_ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "z": ctypes.c_size_t,
+              "f": ctypes.c_float}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 

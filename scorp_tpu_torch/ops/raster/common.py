@@ -7,6 +7,8 @@ preprocess — vectorized over N: projection with row-vector transposed
   Reported radii are the reference's (ceil of 3σ of the max eigenvalue);
   the *binning* rect is the exact per-axis alpha>=1/255 ellipse bbox min'd
   with the reference rect (every excluded pixel has zero contribution).
+  `preprocess_plain` is the plain version, the one autograd runs through;
+  `fused_preprocess.preprocess_kernel` computes it in one CUDA launch.
 
 binning — instead of atomic key duplication + per-key radix sort:
   1. gaussians are sorted by view depth (one N-sized argsort);
@@ -140,7 +142,7 @@ def _tile_index(v: torch.Tensor, hi: int) -> torch.Tensor:
     return torch.clamp(v, -1.0, hi + 1.0).to(torch.int32).clamp(0, hi)
 
 
-def preprocess(
+def preprocess_plain(
     means3d: torch.Tensor,
     opacities: torch.Tensor,
     cam: Camera,
@@ -155,7 +157,9 @@ def preprocess(
     screen_deltas: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
 ) -> Preprocessed:
-    """Vectorized per-Gaussian projection/culling/color stage.
+    """Vectorized per-Gaussian projection/culling/color stage, the plain
+    version of the fused kernel (`csrc/preprocess.cu`) and the only one
+    autograd runs through.
 
     `screen_deltas` [N,2] is added to the projected NDC position (the
     reference's `screenspace_points` trick): its gradient is the NDC-scaled

@@ -30,7 +30,7 @@ import torch
 from PIL import Image
 
 from ..core.camera import Camera
-from ..ops.raster import RasterConfig, preprocess, rasterize, rasterize_surfel
+from ..ops.raster import RasterConfig, preprocess_kernel, rasterize, rasterize_surfel
 from ..render import default_raster_config
 from ..train.state import GaussianState
 
@@ -68,8 +68,8 @@ def projection_vote_step(state: GaussianState, cam: Camera, mask: torch.Tensor) 
         # projected centres are used)
         args["scales"] = torch.cat([args["scales"], args["scales"][:, 1:]], dim=1)
     with torch.no_grad():
-        prep = preprocess(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
-                          colors_precomp=ones, **args)
+        prep = preprocess_kernel(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
+                                 colors_precomp=ones, **args)
         # f32 -> int32 as XLA converts: NaN to 0, saturating
         xy = torch.nan_to_num(torch.round(prep.xy), nan=0.0)
         xy = torch.clamp(xy, -2.0 ** 31, 2.0 ** 31 - 128).to(torch.int64)

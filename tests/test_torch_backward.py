@@ -39,7 +39,7 @@ def _stream(scene):
     """The port's stream of a scene: per-gaussian table, routing, tiles."""
     sc, deg = SCENES[scene]
     xyz, scales, quats, opa, shs = sc()
-    prep = tc.preprocess(t(xyz), t(opa), port_camera(), shs=t(shs), sh_degree=deg,
+    prep = tc.preprocess_plain(t(xyz), t(opa), port_camera(), shs=t(shs), sh_degree=deg,
                          scales=t(scales), quats=t(quats))
     return tc.stream_table(prep), tc.route_stream(prep, W, H, TCFG)
 

@@ -23,7 +23,7 @@ import torch
 from scorp_tpu_torch.core.camera import look_at_camera
 from scorp_tpu_torch.ops.raster import (
     RasterConfig,
-    preprocess,
+    preprocess_kernel,
     preprocess_surfel,
     rasterize,
     rasterize_surfel,
@@ -69,7 +69,7 @@ def _scene(n, seed, device):
 def _prep(n, seed, device, w=96, h=72):
     xyz, scales, quats, opa, shs = _scene(n, seed, device)
     cam = look_at_camera([0, 0.3, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.7, w, h, device=device)
-    return preprocess(xyz, opa, cam, shs=shs, sh_degree=3, scales=scales, quats=quats), w, h
+    return preprocess_kernel(xyz, opa, cam, shs=shs, sh_degree=3, scales=scales, quats=quats), w, h
 
 
 @pytest.mark.parametrize("n,k_cap,cull", [(1, 100, False), (1, 100, True),
@@ -112,7 +112,7 @@ def test_expand_kernel_on_splats_spanning_blocks(dev, cull, k_cap):
     opa[:4] = 0.95
     w, h = 640, 480  # 40 x 30 = 1200 tiles
     cam = look_at_camera([0, 0.3, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.7, w, h, device=dev)
-    prep = preprocess(xyz, opa, cam, shs=shs, sh_degree=3, scales=scales, quats=quats)
+    prep = preprocess_kernel(xyz, opa, cam, shs=shs, sh_degree=3, scales=scales, quats=quats)
     x = expand_inputs(prep, w, h, k_cap, cull)
     counts = x.rect[:, 2:].long().sub(x.rect[:, :2].long()).prod(dim=1)
     assert int(counts.max()) > 1024 + 5  # a run longer than a block
@@ -242,9 +242,9 @@ def test_route_stream_on_cuda_equals_cpu_for_both_key_widths(dev):
         cam = look_at_camera([0, 0.3, -4.0], [0, 0, 0], [0, 1, 0], 1.2, 0.9, 1600, 1066,
                              device=device)
         for rows in (n, n - 1):
-            prep = preprocess(xyz[:rows], opa[:rows], cam, colors_precomp=colors[:rows],
-                              scales=scales[:rows], quats=quats[:rows],
-                              alive=torch.as_tensor(alive[:rows], device=device))
+            prep = preprocess_kernel(xyz[:rows], opa[:rows], cam, colors_precomp=colors[:rows],
+                                     scales=scales[:rows], quats=quats[:rows],
+                                     alive=torch.as_tensor(alive[:rows], device=device))
             x = expand_inputs(prep, 1600, 1066, cfg.max_keys, True)
             assert x.key_dtype == (torch.int64 if rows == n else torch.int32)
             launches = sort_keys.launches

@@ -44,7 +44,7 @@ SCENES = {
 
 def _route(scene):
     xyz, scales, quats, opa, shs = SCENES[scene]()
-    prep = tc.preprocess(t(xyz), t(opa), port_camera(), shs=t(shs), sh_degree=0,
+    prep = tc.preprocess_plain(t(xyz), t(opa), port_camera(), shs=t(shs), sh_degree=0,
                          scales=t(scales), quats=t(quats))
     return tc.stream_table(prep), tc.route_stream(prep, W, H, RasterConfig(max_keys=1 << 14))
 

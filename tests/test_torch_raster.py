@@ -46,7 +46,7 @@ def both_preps(scene, sh_degree=3, alive=None):
     xyz, scales, quats, opa, shs = scene
     pj = jc.preprocess(xyz, opa, CAM, shs=shs, sh_degree=sh_degree, scales=scales,
                        quats=quats, alive=None if alive is None else jnp.asarray(alive))
-    pt = tc.preprocess(t(xyz), t(opa), port_camera(), shs=t(shs), sh_degree=sh_degree,
+    pt = tc.preprocess_plain(t(xyz), t(opa), port_camera(), shs=t(shs), sh_degree=sh_degree,
                        scales=t(scales), quats=t(quats),
                        alive=None if alive is None else torch.as_tensor(alive))
     return pj, pt

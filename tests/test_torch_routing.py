@@ -11,7 +11,7 @@ import torch
 
 from scorp_tpu.ops.raster.pallas_expand import packable
 from scorp_tpu_torch.core.camera import look_at_camera
-from scorp_tpu_torch.ops.raster import RasterConfig, preprocess
+from scorp_tpu_torch.ops.raster import RasterConfig, preprocess_plain
 from scorp_tpu_torch.ops.raster import common as tc
 from scorp_tpu_torch.ops.raster import surfel as ts
 from scorp_tpu_torch.ops.raster.expand import (
@@ -148,9 +148,9 @@ def test_int64_route_past_262144_rows_equals_the_int32_one():
 
     routes, dtypes = [], []
     for rows in (n, n - 1):
-        prep = preprocess(t(xyz[:rows]), t(opa[:rows]), cam, colors_precomp=t(colors[:rows]),
-                          scales=t(scales[:rows]), quats=t(quats[:rows]),
-                          alive=torch.as_tensor(alive[:rows]))
+        prep = preprocess_plain(t(xyz[:rows]), t(opa[:rows]), cam,
+                                colors_precomp=t(colors[:rows]), scales=t(scales[:rows]),
+                                quats=t(quats[:rows]), alive=torch.as_tensor(alive[:rows]))
         dtypes.append(expand_inputs(prep, 1600, 1066, cfg.max_keys, True).key_dtype)
         routes.append(tc.route_stream(prep, 1600, 1066, cfg))
     assert dtypes == [torch.int64, torch.int32]
