@@ -242,7 +242,8 @@ def rasterize_surfel(
         table = surfel_table(prep)
     bg = bg.to(torch.float32).contiguous()
     with torch.no_grad():
-        ell, circ = surfel_cull_ellipses(prep)
+        with span("raster.surfel_cull"):
+            ell, circ = surfel_cull_ellipses(prep)
         route = route_stream(surfel_prep_to_common(prep), w, h, cfg, geo=ell, geo2=circ)
     if needs_grad:
         outs = _SurfelComposite.apply(table, route.gid, route.tile_start, route.tile_count,

@@ -59,7 +59,8 @@ def render2d(
             params["xyz"], torch.sigmoid(params["opacity"][:, 0]), cam,
             torch.as_tensor(bg, dtype=torch.float32, device=dev), **kwargs,
         )
-        render_normal, surf_depth, surf_normal = surfel_maps(out, cam, depth_ratio)
+        with span("render.surfel_maps"):
+            render_normal, surf_depth, surf_normal = surfel_maps(out, cam, depth_ratio)
         return {
             "render": out.color,
             "radii": out.radii,

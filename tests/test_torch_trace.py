@@ -29,9 +29,11 @@ RASTER = ["raster.preprocess", "raster.route", "raster.route.depth_order",
 STEP = ["step.forward", "step.loss", "step.backward", "step.update", "raster.backward"]
 EXPECTED = {
     "render": {"render": 1, **dict.fromkeys(RASTER, 1)},
-    "render2d": {"render": 1, **dict.fromkeys(RASTER, 1)},
+    "render2d": {"render": 1, "render.surfel_maps": 1, "raster.surfel_cull": 1,
+                 **dict.fromkeys(RASTER, 1)},
     "train_step": {**dict.fromkeys(RASTER, 1), **dict.fromkeys(STEP, 1)},
-    "train_step_2d": {**dict.fromkeys(RASTER, 1), **dict.fromkeys(STEP, 1)},
+    "train_step_2d": {"raster.surfel_cull": 1, **dict.fromkeys(RASTER, 1),
+                      **dict.fromkeys(STEP, 1)},
 }
 PROGRAM = ("render", "raster.", "step.", "densify.")
 
@@ -88,15 +90,17 @@ def test_every_span_recorded_once(what):
     assert all(e.is_user_annotation for e in events)
 
 
-@pytest.mark.parametrize("what", ["render", "train_step_2d"])
+@pytest.mark.parametrize("what", ["render", "render2d", "train_step_2d"])
 def test_children_inside_their_parent(what):
     events = _profiled(_call(what))
     by_name = {e.name: e for e in events}
     parents = {"raster.route.depth_order": "raster.route", "raster.route.expand": "raster.route",
                "raster.route.sort": "raster.route"}
-    outer = "render" if what == "render" else "step.forward"
-    for name in RASTER:
+    outer = "step.forward" if what == "train_step_2d" else "render"
+    for name in RASTER + (["raster.surfel_cull"] if what != "render" else []):
         parents.setdefault(name, outer)
+    if what == "render2d":
+        parents["render.surfel_maps"] = "render"
     if what == "train_step_2d":
         parents.update({"step.loss": "step.forward", "raster.backward": "step.backward"})
     for child, parent in parents.items():
