@@ -102,7 +102,9 @@ Phases, in order (any failure exits non-zero):
      tests), counted with the plain surfel_hit, surfel_warp_mask and
      surfel_pretest on the card.
   11. the host synchronisations PyTorch is asked for by one `render()` of
-     the scene and by one `train_step` at phase 7's setting, counted under
+     the scene and by one `train_step` at phase 7's setting (each
+     rasterization reads its expanded-key count once, to size the key
+     buffers: `expand.key_slots`), counted under
      torch.cuda.set_sync_debug_mode("warn") (`host_sync_counts`, which runs
      on earlier versions of the port too: import this file by its path with
      another checkout's root first on sys.path to count theirs).
@@ -695,35 +697,53 @@ def check_expand(x, label: str) -> int:
             keys_p, kept_p = expand_keys_plain(xc._replace(key_dtype=dtype))
             err = max(err, int((keys_k.long() - keys_p.long()).abs().max()))
             check(torch.equal(keys_k, keys_p) and int(kept_k) == int(kept_p),
-                  f"K1 {label} {cull}, {str(dtype)[6:]} keys: all {x.k_cap} keys identical to "
+                  f"K1 {label} {cull}, {str(dtype)[6:]} keys: all {x.slots} keys identical to "
                   f"the plain version, kept {int(kept_k)}")
     return err
 
 
-def check_route(x, route, cfg, label: str) -> None:
-    """The keys-only sort against torch.sort on K1's keys, and the route the
-    path built (gid, tile_start, tile_count, dropped) against the int64
-    form's decode: the same keys widened to int64 and sorted by torch.sort."""
+def full_capacity_route(x, cfg):
+    """The route as the full-capacity form built it: K1 over all k_cap slots
+    (not the frame's x.slots), the keys widened to int64, sorted by
+    torch.sort and decoded -> (gid [k2], tile_start, tile_count, dropped)."""
     import torch
 
     from scorp_tpu_torch.ops.raster.common import _tile_bounds
     from scorp_tpu_torch.ops.raster.expand import expand_keys
-    from scorp_tpu_torch.ops.raster.sort import sort_keys
 
-    keys, kept = expand_keys(x)
-    check(torch.equal(sort_keys(keys, x.end_bit), torch.sort(keys).values),
-          f"sort {label}: keys-only sort of {x.k_cap} {str(x.key_dtype)[6:]} keys over "
-          f"{x.end_bit} bits equals torch.sort")
+    keys, kept = expand_keys(x._replace(slots=x.k_cap))
     s = torch.sort(keys.to(torch.int64)).values
     k2 = min(cfg.stream_cap, x.k_cap)
     start, count = _tile_bounds(s[:k2] >> x.bits_g, x.num_tiles)
     gid = x.order[s[:k2] & ((1 << x.bits_g) - 1)].to(torch.int32)
     dropped = torch.clamp_min(x.total - x.k_cap, 0) + torch.clamp_min(kept - k2, 0)
-    check(torch.equal(route.gid, gid) and torch.equal(route.tile_start, start.to(torch.int32))
-          and torch.equal(route.tile_count, count.to(torch.int32))
+    return gid, start.to(torch.int32), count.to(torch.int32), dropped
+
+
+def check_route(x, route, cfg, label: str) -> None:
+    """The keys-only sort against torch.sort on K1's keys (the frame's
+    x.slots of them), and the route the path built against the
+    full-capacity form's int64 decode (`full_capacity_route`): gid on the
+    live prefix, its length min(k2, slots), tile_start, tile_count and
+    dropped equal."""
+    import torch
+
+    from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.sort import sort_keys
+
+    keys, _ = expand_keys(x)
+    check(torch.equal(sort_keys(keys, x.end_bit), torch.sort(keys).values),
+          f"sort {label}: keys-only sort of {x.slots} {str(x.key_dtype)[6:]} keys over "
+          f"{x.end_bit} bits equals torch.sort")
+    gid, start, count, dropped = full_capacity_route(x, cfg)
+    live = int(route.tile_count.sum())
+    check(route.gid.shape[0] == min(gid.shape[0], x.slots)
+          and torch.equal(route.gid[:live], gid[:live])
+          and torch.equal(route.tile_start, start) and torch.equal(route.tile_count, count)
           and int(route.num_dropped_keys) == int(dropped),
-          f"route {label}: gid, tile ranges and dropped ({int(dropped)}) equal the int64 "
-          "form's decode")
+          f"route {label}: {route.gid.shape[0]} stream slots of a {x.k_cap} capacity; gid's "
+          f"{live} live slots, tile ranges and dropped ({int(dropped)}) equal the "
+          "full-capacity int64 decode")
 
 
 def counted_syncs(fn):
@@ -936,8 +956,11 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     cam = scene.get_test_cameras()[0].to_torch(device)
     bg = torch.ones(3, device=device)
 
+    route_stream.slots = route_stream.capacity = 0
     frame_ms = cuda_ms(lambda: render(cam, state, bg), 5)
-    print(f"  full frame through render(): {frame_ms:.3f} ms (CUDA-event median of 5)")
+    print(f"  full frame through render(): {frame_ms:.3f} ms (CUDA-event median of 5); key "
+          f"slots / capacity over its calls: {route_stream.slots} / {route_stream.capacity} = "
+          f"{route_stream.slots / max(route_stream.capacity, 1):.4f}")
 
     p = state.params
 
@@ -972,6 +995,8 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     check(0.8 * golden <= kept <= golden + 1000,
           f"K1 full width: kept {kept} within [0.8, 1] x golden {golden} (+1000)")
     in_range = int(torch.clamp_max(x.total, cfg.max_keys))
+    print(f"  the full-width frame's keys: total {int(x.total)} expanded, {kept} kept, "
+          f"{x.slots} slots of a {x.k_cap} capacity")
 
     k1_ms = kernel_ms(lambda: expand_keys(x), "::expand_keys_kernel")
     k1_call_ms = cuda_ms(lambda: expand_keys(x), 20)
@@ -980,8 +1005,8 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     # its start, rect and ellipse read once; the formula of the 64-bit
     # keys (8 B per slot) is printed beside it
     key_bytes = 4 if x.key_dtype == torch.int32 else 8
-    k1_bytes = cfg.max_keys * key_bytes + n * (4 + 16 + 24) + 8
-    k1_bytes_int64 = cfg.max_keys * 8 + n * (4 + 16 + 24) + 8
+    k1_bytes = x.slots * key_bytes + n * (4 + 16 + 24) + 8
+    k1_bytes_int64 = x.slots * 8 + n * (4 + 16 + 24) + 8
     k1_ops_s = in_range * K1_FLOPS_PER_KEY / F32_FLOPS_PER_S
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops_s)
     k1_bound_int64 = max(k1_bytes_int64 / HBM_BYTES_PER_S, k1_ops_s)
@@ -1044,7 +1069,7 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     else:
         print("  device busy per frame: not measured (the trace held no CUDA events)")
     print(f"  K1: {k1_ms:.4f} ms ({k1_call_ms:.4f} per call), plain {k1_plain_ms:.3f} ms, bound "
-          f"{1e3 * k1_bound:.4f} ms ({x.k_cap} {8 * key_bytes}-bit key slots, {in_range} in "
+          f"{1e3 * k1_bound:.4f} ms ({x.slots} {8 * key_bytes}-bit key slots, {in_range} in "
           f"range, {kept} kept, {n} gaussians; with 64-bit keys the bound would be "
           f"{1e3 * k1_bound_int64:.4f} ms)")
     print(f"  key sort ({x.end_bit} bits), device ms per call, all kernels / radix-sort kernels: "
@@ -4326,7 +4351,8 @@ def main(argv=None) -> int:
     check(host_syncs(lambda: int(torch.ones(1, device=device).sum())) >= 1,
           "the count sees the synchronisation of one int() of a CUDA tensor")
     syncs = host_sync_counts(args, device)
-    print(f"  host synchronisations: {json.dumps(syncs)}")
+    print(f"  host synchronisations: {json.dumps(syncs)} (each rasterization's one read of "
+          "its expanded-key count included)")
     torch.cuda.empty_cache()
 
     print(f"[12] SCORP object path at full width: {args.n} gaussians, {SCORP_VIEWS} views at "

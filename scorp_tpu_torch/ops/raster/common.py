@@ -12,10 +12,11 @@ preprocess — vectorized over N: projection with row-vector transposed
 
 binning — instead of atomic key duplication + per-key radix sort:
   1. gaussians are sorted by view depth (one N-sized argsort);
-  2. every key slot k < max_keys finds its gaussian in the exclusive prefix
+  2. every key slot k finds its gaussian in the exclusive prefix
      sum `starts` of the rect tile counts, and its tile inside the rect
      (kernel K1, `expand.py`), culling keys whose tile the alpha>=1/255
-     ellipse misses;
+     ellipse misses; the slots are the frame's expanded keys `total`
+     rounded up to a bucket (`expand.key_slots`), at most max_keys;
   3. one keys-only sort of the packed (tile << bits_g) | depth_rank keys
      (`sort.py`; int32 keys where they fit, as the JAX package packs them,
      else int64) keeps depth order within each tile;
@@ -54,7 +55,9 @@ DATA_ROWS = 10  # stream row layout, see StreamBins
 class RasterConfig(NamedTuple):
     """Capacities of the key buffers."""
 
-    max_keys: int = 1 << 20   # total (gaussian, tile) pair capacity
+    # (gaussian, tile) pair capacity: a ceiling, past which keys are dropped;
+    # the key buffers follow each frame's expanded keys (`expand.key_slots`)
+    max_keys: int = 1 << 20
     # capacity of the post-cull sorted stream (0 = max_keys): the exact
     # ellipse-tile cull drops 15-50% of expanded keys, so the stream the
     # compositor reads can be smaller than the expansion buffer
@@ -84,7 +87,7 @@ class StreamRouting(NamedTuple):
     """Integer routing of the per-tile key stream: slot k of the stream
     holds the row gid[k] of the per-gaussian table (`stream_table`)."""
 
-    gid: torch.Tensor          # [K2] int32 gaussian row of each stream slot
+    gid: torch.Tensor          # [min(K2, slots)] int32 gaussian row of each stream slot
     tile_start: torch.Tensor   # [num_tiles] int32 offsets into the stream
     tile_count: torch.Tensor   # [num_tiles] int32
     num_dropped_keys: torch.Tensor  # [] int64
@@ -97,7 +100,7 @@ class StreamBins(NamedTuple):
     (conic_chol), 5-7 color, 8 depth, 9 log2(opacity) (log2_opacity).
     """
 
-    data: torch.Tensor         # [K2, 10] f32, grouped by tile, depth-ascending
+    data: torch.Tensor         # [min(K2, slots), 10] f32, grouped by tile, depth-ascending
     tile_start: torch.Tensor   # [num_tiles] int32 offsets into the stream
     tile_count: torch.Tensor   # [num_tiles] int32
     num_dropped_keys: torch.Tensor  # [] int64
@@ -484,8 +487,8 @@ def sorted_expansion(prep: Preprocessed, width: int, height: int, k_cap: int,
                      cull: bool = True, geo: torch.Tensor | None = None,
                      geo2: torch.Tensor | None = None):
     """Expansion (kernel K1 on CUDA tensors, its plain version on CPU) +
-    one keys-only sort over the bits the keys use -> (sorted_tile [K],
-    g_sorted [K], order, total, kept), in the keys' dtype (int32 or int64,
+    one keys-only sort over the bits the keys use -> (sorted_tile [slots],
+    g_sorted [slots], order, total, kept), in the keys' dtype (int32 or int64,
     `key_dtype`). Culled and out-of-range keys carry the sentinel tile
     `num_tiles` and sort past every live key. `geo`/`geo2` are the cull
     ellipses (default: the 3DGS ellipse alone)."""
@@ -521,7 +524,12 @@ def route_stream(prep: Preprocessed, width: int, height: int, cfg: RasterConfig,
     per-tile ranges. Integer work only: the training path runs it under
     no_grad on the detached prep, as the JAX package stops gradients at its
     routing (`pallas.py:324`). `geo`/`geo2` are K1's cull ellipses (default:
-    the 3DGS ellipse; the surfel path passes its conic and circle)."""
+    the 3DGS ellipse; the surfel path passes its conic and circle).
+
+    The stream has min(K2, slots) slots, `slots` the length of K1's key
+    buffer (`expand.key_slots`); `route_stream.slots` and
+    `route_stream.capacity` add up the slots and the capacities of every
+    call, so their ratio is the share of the capacity the sizing spends."""
     tiles_x, tiles_y = grid_dims(width, height)
     num_tiles = tiles_x * tiles_y
     k_cap = cfg.max_keys
@@ -531,13 +539,20 @@ def route_stream(prep: Preprocessed, width: int, height: int, cfg: RasterConfig,
         sorted_tile, g_sorted, order, total, kept = sorted_expansion(
             prep, width, height, k_cap, cull=True, geo=geo, geo2=geo2
         )
+        slots = sorted_tile.shape[0]
         # culled + out-of-range keys sort past every live key, so slicing to
         # the post-cull capacity is the compaction; their slots get a valid but
         # meaningless row that no tile range reaches
         gid = order[g_sorted[:k2]].to(torch.int32)
         tile_start, tile_count = _tile_bounds(sorted_tile[:k2], num_tiles)
         dropped = torch.clamp_min(total - k_cap, 0) + torch.clamp_min(kept - k2, 0)
+    route_stream.slots += slots
+    route_stream.capacity += k_cap
     return StreamRouting(gid, tile_start, tile_count, dropped)
+
+
+route_stream.slots = 0
+route_stream.capacity = 0
 
 
 def bin_stream(prep: Preprocessed, width: int, height: int,

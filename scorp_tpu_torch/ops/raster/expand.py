@@ -17,6 +17,12 @@ or the sentinel num_tiles << bits_g for culled keys and keys at or past
 min(total, k_cap). `kept` counts the live keys. The key is int32 where it
 fits, as the JAX package packs it (`common.key_dtype`), else int64.
 
+The key buffer follows the frame, not the capacity: `expand_inputs` reads
+`total` to the host once and K1 writes `key_slots(total, k_cap)` slots,
+`total` rounded up to a whole bucket of SLOT_BUCKET slots and at most
+k_cap. Every live key lies below min(total, k_cap), so the slots past it
+would hold only sentinels; the capacity still decides what is dropped.
+
 The kernel finds each slot's gaussian by a search per block of
 `BLOCK_SLOTS` slots (`csrc/expand.cu`); `warp_search_plain` and
 `block_search_plain` mirror that search in PyTorch for the tests.
@@ -44,6 +50,16 @@ from .common import (
 REPLACES = "scorp_tpu/ops/raster/pallas_expand.py:80 _expand_kernel"
 SOURCE = "scorp_tpu_torch/csrc/expand.cu"
 BLOCK_SLOTS = 1024  # key slots per block of the kernel (csrc/expand.cu: kBlockSlots)
+SLOT_BUCKET = 1 << 18  # the key buffer's length is a whole number of these, or k_cap
+
+
+def key_slots(total: int, k_cap: int) -> int:
+    """Length of the key buffer for a frame of `total` expanded keys: total
+    rounded up to a whole bucket, at least one bucket, at most k_cap. The
+    bucket bounds the distinct lengths (128 at k_cap = 2^25), so the sort's
+    scratch query (`sort._temp_bytes`) and the allocator's blocks do not
+    grow frame by frame."""
+    return min(k_cap, -(-max(total, 1) // SLOT_BUCKET) * SLOT_BUCKET)
 
 
 class ExpandInputs(NamedTuple):
@@ -53,6 +69,7 @@ class ExpandInputs(NamedTuple):
     geo: torch.Tensor | None    # [N, 6] f32 depth-sorted cull ellipses; None = no cull
     geo2: torch.Tensor | None   # [N, 6] f32 depth-sorted second ellipses (union); or None
     k_cap: int
+    slots: int                  # length of the key buffer: key_slots(total, k_cap)
     tiles_x: int
     num_tiles: int
     bits_g: int
@@ -65,10 +82,11 @@ class ExpandInputs(NamedTuple):
 def expand_inputs(prep: Preprocessed, width: int, height: int, k_cap: int,
                   cull: bool, geo: torch.Tensor | None = None,
                   geo2: torch.Tensor | None = None) -> ExpandInputs:
-    """The depth sort and prefix sums around the kernel (plain torch). With
-    `cull`, the cull ellipses are `geo` (default: the 3DGS ellipse,
-    `default_cull_geo`) and the optional `geo2`, both [N, 6] in the prep's
-    order."""
+    """The depth sort and prefix sums around the kernel (plain torch), and
+    the key buffer's length from `total`, read to the host (the routing's
+    one synchronisation). With `cull`, the cull ellipses are `geo`
+    (default: the 3DGS ellipse, `default_cull_geo`) and the optional `geo2`,
+    both [N, 6] in the prep's order."""
     n = prep.xy.shape[0]
     if n == 0:
         raise ValueError("key expansion needs at least one gaussian")
@@ -83,13 +101,18 @@ def expand_inputs(prep: Preprocessed, width: int, height: int, k_cap: int,
         geo2 = None if geo2 is None else geo2[order].contiguous()
     else:
         geo = geo2 = None
+    starts = torch.clamp_max(starts, k_cap).to(torch.int32)
+    limit = torch.clamp_max(total, k_cap).to(torch.int32).reshape(1)
+    # the read waits for the device: launch all that does not need it first
+    slots = key_slots(int(total), k_cap)
     return ExpandInputs(
-        starts=torch.clamp_max(starts, k_cap).to(torch.int32),
-        limit=torch.clamp_max(total, k_cap).to(torch.int32).reshape(1),
+        starts=starts,
+        limit=limit,
         rect=rect,
         geo=geo,
         geo2=geo2,
         k_cap=k_cap,
+        slots=slots,
         tiles_x=tiles_x,
         num_tiles=num_tiles,
         bits_g=bits_g,
@@ -120,11 +143,11 @@ def _keep_plain(geo, g, tx, ty):
 
 
 def expand_keys_plain(x: ExpandInputs):
-    """Plain PyTorch version of the kernel: (keys [k_cap] of x.key_dtype,
+    """Plain PyTorch version of the kernel: (keys [slots] of x.key_dtype,
     kept [1] int32)."""
     dev = x.starts.device
     n = x.starts.shape[0]
-    ks = torch.arange(x.k_cap, dtype=torch.int32, device=dev)
+    ks = torch.arange(x.slots, dtype=torch.int32, device=dev)
     g = (torch.searchsorted(x.starts, ks, right=True) - 1).clamp(0, n - 1)
     r = x.rect[g]
     span = torch.clamp_min(r[:, 2] - r[:, 0], 1)
@@ -195,7 +218,7 @@ def block_search_plain(starts: torch.Tensor, limit: int, k_cap: int):
 def expand_keys(x: ExpandInputs):
     """K1 wrapper: launches the CUDA kernel for CUDA tensors (and raises if
     that fails); runs `expand_keys_plain` for CPU tensors.
-    Returns (keys [k_cap] of x.key_dtype, unsorted; kept [1] int32)."""
+    Returns (keys [slots] of x.key_dtype, unsorted; kept [1] int32)."""
     dev = x.starts.device
     if dev.type == "cpu":
         return expand_keys_plain(x)
@@ -211,8 +234,8 @@ def expand_keys(x: ExpandInputs):
         if x.geo is None:
             raise ValueError("geo2 needs geo")
         check_tensor(x.geo2, "geo2", torch.float32, (n, 6), dev)
-    if n == 0 or x.k_cap <= 0 or x.k_cap > 1 << 30:
-        raise ValueError(f"bad sizes: n={n}, k_cap={x.k_cap}")
+    if n == 0 or not 0 < x.slots <= x.k_cap <= 1 << 30:
+        raise ValueError(f"bad sizes: n={n}, slots={x.slots}, k_cap={x.k_cap}")
     if x.key_dtype not in (torch.int32, torch.int64):
         raise TypeError(f"key_dtype {x.key_dtype}, expected torch.int32 or torch.int64")
     if x.num_tiles << x.bits_g >= 1 << (31 if x.key_dtype == torch.int32 else 63):
@@ -221,7 +244,7 @@ def expand_keys(x: ExpandInputs):
         raise ValueError("rect must be 16-byte aligned (read as int4)")
 
     lib = load("expand")
-    keys = torch.empty(x.k_cap, dtype=x.key_dtype, device=dev)
+    keys = torch.empty(x.slots, dtype=x.key_dtype, device=dev)
     kept = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -229,7 +252,7 @@ def expand_keys(x: ExpandInputs):
             x.starts.data_ptr(), x.limit.data_ptr(), x.rect.data_ptr(),
             x.geo.data_ptr() if x.geo is not None else None,
             x.geo2.data_ptr() if x.geo2 is not None else None,
-            n, x.k_cap, x.tiles_x, x.num_tiles, x.bits_g, int(x.key_dtype == torch.int64),
+            n, x.slots, x.tiles_x, x.num_tiles, x.bits_g, int(x.key_dtype == torch.int64),
             keys.data_ptr(), kept.data_ptr(), stream,
         )
     if err != 0:

@@ -71,7 +71,9 @@ def render(
 def default_raster_config(capacity: int, avg_tiles_per_gaussian: int = 16) -> RasterConfig:
     """Key capacity from the Gaussian capacity (power of two). Conservative:
     no post-cull stream trim, for call sites without overflow-regrow
-    handling."""
+    handling. The capacity is a ceiling: the key buffers follow each
+    frame's expanded keys (`ops.raster.expand.key_slots`), so a large
+    capacity costs nothing in a frame that does not fill it."""
     max_keys = 1 << max(14, (capacity * avg_tiles_per_gaussian - 1).bit_length())
     return RasterConfig(max_keys=max_keys)
 
@@ -87,7 +89,9 @@ def tuned_raster_config(
     """The configuration for training loops: a post-cull stream trim at 3/4
     of the expansion capacity (the exact ellipse-tile cull drops 15-50% of
     expanded keys). Overflow of either capacity is reported via
-    num_dropped_keys; callers MUST handle it with regrow_config.
+    num_dropped_keys; callers MUST handle it with regrow_config. Both
+    capacities are ceilings: the key buffers follow each frame's expanded
+    keys (`ops.raster.expand.key_slots`).
     `bwd_block_frac` has no effect in this port (see RasterConfig)."""
     if max_keys is None:
         max_keys = 1 << min(22, max(14, (capacity * avg_tiles_per_gaussian - 1).bit_length()))

@@ -9,7 +9,10 @@ ellipse, random surfel scenes with tiles of several key batches, and
 hand-built surfel streams: one emitting lane per warp, one surfel row in
 every tile, pairs within a few ulps of alpha = 1/255; for K2 and K3 the
 same kinds of hand-built 3DGS streams, and one whose keys every warp but
-the first skips by the mask); and the SIFT matcher (pipeline/sift.py,
+the first skips by the mask); the key buffers sized by the frame's keys
+against the full-capacity stream at 1600x1066 (K2's and K4's images bit
+for bit, the grad path's gradients within two runs' atomics spread); and
+the SIFT matcher (pipeline/sift.py,
 plain PyTorch) on the card against the CPU. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere. On a GPU machine:
 
@@ -32,6 +35,8 @@ from scorp_tpu_torch.ops.raster import (
     surfel_prep_to_common,
     surfel_table,
 )
+from scorp_tpu_torch.ops.raster import common as raster_common
+from scorp_tpu_torch.ops.raster import expand as raster_expand
 from scorp_tpu_torch.ops.raster.backward import composite_backward, composite_backward_plain
 from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
 from scorp_tpu_torch.ops.raster.expand import expand_inputs, expand_keys, expand_keys_plain
@@ -43,6 +48,7 @@ from scorp_tpu_torch.ops.raster.surfel_composite import (
     surfel_composite_train,
 )
 from scorp_tpu_torch.pipeline import sift
+from scorp_tpu_torch.render import default_raster_config
 
 pytestmark = pytest.mark.cuda
 
@@ -328,6 +334,150 @@ def test_backward_wrapper_rejects_bad_inputs(dev):
         composite_backward(*args[:5] + [args[5][:, :2].contiguous()] + args[6:], tiles_x=2)
     with pytest.raises(ValueError):
         composite_backward(*args, tiles_x=3)
+
+
+# --- the key buffers sized by the frame's keys -------------------------------
+
+SIZED_N, SIZED_W, SIZED_H = 100_000, 1600, 1066
+
+
+def _sized_scene(device, grad=False):
+    """100k small primitives at 1600x1066: ~0.8M keys, so the key buffers
+    take 3-4 buckets of default_raster_config's 2^21 slots."""
+    xyz, scales, quats, opa, shs = _scene(SIZED_N, 17, device)
+    arrays = [xyz, scales / 6.0, quats, opa, shs]
+    cam = look_at_camera([0, 0.3, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.7, SIZED_W, SIZED_H,
+                         device=device)
+    return [a.clone().requires_grad_(grad) for a in arrays], cam
+
+
+def _full_capacity(monkeypatch):
+    """Every key buffer at the capacity's length, as before the sizing."""
+    monkeypatch.setattr(raster_expand, "key_slots", lambda total, k_cap: k_cap)
+
+
+def _check_sized_route(x, route, cfg):
+    """The sized route against the full-capacity one built by hand, as
+    chip_smoke.check_route builds it; returns that stream (gid, start, count)."""
+    import chip_smoke
+
+    gid, start, count, dropped = chip_smoke.full_capacity_route(x, cfg)
+    live = int(route.tile_count.sum())
+    assert x.slots < x.k_cap and route.gid.shape == (min(gid.shape[0], x.slots),)
+    assert torch.equal(route.gid[:live], gid[:live])
+    assert torch.equal(route.tile_start, start) and torch.equal(route.tile_count, count)
+    assert int(route.num_dropped_keys) == int(dropped) == 0
+    return gid, start, count
+
+
+def _grads_within_spread(run, monkeypatch):
+    """The grad path's gradients at the sized buffers (twice: the atomics'
+    own run-to-run spread) and at the full capacity: each input's gap to
+    the full-capacity run within twice the spread of the two sized runs,
+    plus 1e-6 of its largest gradient."""
+    sized = [run(), run()]
+    _full_capacity(monkeypatch)
+    full = run()
+    for a, b, f in zip(*sized, full):
+        scale = float(f.abs().max())
+        spread = float((a - b).abs().max())
+        assert scale > 0.0
+        assert float((a - f).abs().max()) <= 2.0 * spread + 1e-6 * scale
+
+
+def test_sized_stream_gives_k2_the_full_capacity_images(dev):
+    (xyz, scales, quats, opa, shs), cam = _sized_scene(dev)
+    cfg = default_raster_config(SIZED_N)
+    prep = preprocess_kernel(xyz, opa, cam, shs=shs, sh_degree=3, scales=scales, quats=quats)
+    x = expand_inputs(prep, SIZED_W, SIZED_H, cfg.max_keys, True)
+    slots0, cap0 = route_stream.slots, route_stream.capacity
+    route = route_stream(prep, SIZED_W, SIZED_H, cfg)
+    assert (route_stream.slots - slots0, route_stream.capacity - cap0) == (x.slots, x.k_cap)
+    gid, start, count = _check_sized_route(x, route, cfg)
+    table = raster_common.stream_table(prep)
+    bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    tiles_x = SIZED_W // 16
+    sized = composite(table[route.gid].contiguous(), route.tile_start, route.tile_count, bg,
+                      tiles_x=tiles_x, track_ncontrib=True)
+    full = composite(table[gid].contiguous(), start, count, bg, tiles_x=tiles_x,
+                     track_ncontrib=True)
+    assert float(sized[2].mean()) > 0.05
+    for a, b in zip(sized, full):
+        assert torch.equal(a, b)
+
+
+def test_sized_stream_gives_k4_the_full_capacity_images(dev):
+    (xyz, scales, quats, opa, shs), cam = _sized_scene(dev)
+    cfg = default_raster_config(SIZED_N)
+    prep = preprocess_surfel(xyz, opa, cam, shs=shs, sh_degree=3, scales=scales[:, :2],
+                             quats=quats)
+    ell, circ = surfel_cull_ellipses(prep)
+    common = surfel_prep_to_common(prep)
+    x = expand_inputs(common, SIZED_W, SIZED_H, cfg.max_keys, True, ell, circ)
+    route = route_stream(common, SIZED_W, SIZED_H, cfg, geo=ell, geo2=circ)
+    gid, start, count = _check_sized_route(x, route, cfg)
+    table = surfel_table(prep)
+    bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    tiles_x = SIZED_W // 16
+    sized = surfel_composite(table[route.gid].contiguous(), route.tile_start,
+                             route.tile_count, bg, tiles_x=tiles_x)
+    full = surfel_composite(table[gid].contiguous(), start, count, bg, tiles_x=tiles_x)
+    assert float(sized[1].mean()) > 0.05
+    for a, b in zip(sized, full):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("primitive", ["3dgs", "2dgs"])
+def test_sized_stream_eval_renders_equal_the_full_capacity_ones(dev, monkeypatch, primitive):
+    """rasterize / rasterize_surfel without grad, whole: every output bit
+    for bit at the sized buffers and at the full capacity."""
+    (xyz, scales, quats, opa, shs), cam = _sized_scene(dev)
+    cfg = default_raster_config(SIZED_N)
+    bg = torch.zeros(3, device=dev)
+
+    def run():
+        if primitive == "3dgs":
+            return rasterize(xyz, opa, cam, bg, shs=shs, sh_degree=3, scales=scales,
+                             quats=quats, cfg=cfg)
+        return rasterize_surfel(xyz, opa, cam, bg, shs=shs, sh_degree=3,
+                                scales=scales[:, :2], quats=quats, cfg=cfg)
+
+    slots0, cap0 = route_stream.slots, route_stream.capacity
+    sized = run()
+    assert route_stream.slots - slots0 < route_stream.capacity - cap0 == cfg.max_keys
+    _full_capacity(monkeypatch)
+    full = run()
+    assert int(sized.num_dropped_keys) == int(full.num_dropped_keys) == 0
+    for a, b in zip(sized, full):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("primitive", ["3dgs", "2dgs"])
+def test_sized_stream_grad_path_gives_the_full_capacity_gradients(dev, monkeypatch, primitive):
+    """One grad-path step (K2 + K3, or K5 + K6) at the sized buffers and at
+    the full capacity: the gradients of every input agree within the
+    atomics' spread between two runs of the same stream."""
+    cfg = default_raster_config(SIZED_N)
+    bg = torch.zeros(3, device=dev)
+
+    def run():
+        inputs, cam = _sized_scene(dev, grad=True)
+        xyz, scales, quats, opa, shs = inputs
+        if primitive == "3dgs":
+            out = rasterize(xyz, opa, cam, bg, shs=shs, sh_degree=3, scales=scales,
+                            quats=quats, cfg=cfg)
+            loss = out.color.square().mean() + out.alpha.mean() + 0.1 * out.depth_accum.mean()
+        else:
+            out = rasterize_surfel(xyz, opa, cam, bg, shs=shs, sh_degree=3,
+                                   scales=scales[:, :2], quats=quats, cfg=cfg)
+            loss = (out.color.square().mean() + out.alpha.mean() + 0.1 * out.depth_accum.mean()
+                    + 0.1 * out.normal.square().mean() + 0.05 * out.depth_median.mean()
+                    + 10.0 * out.distortion.mean())
+        assert int(out.num_dropped_keys) == 0
+        loss.backward()
+        return [x.grad for x in inputs]
+
+    _grads_within_spread(run, monkeypatch)
 
 
 # --- the surfel path: K1 with its second ellipse, K4, K5, K6 ----------------

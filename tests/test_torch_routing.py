@@ -1,7 +1,10 @@
 """Port parity, the routing (K1's packed keys and their sort): the key width
 the port picks against scorp_tpu's `packable` rule; the int32 route against
-an int64 reference built from the same plain keys; one route past the
-int32 edge (262,145 rows at 1600x1066); and the PyTorch mirror of K1's
+an int64 reference built from the same plain keys, and the route sized by
+the frame's keys against the full-capacity decode; one route past the
+int32 edge (262,145 rows at 1600x1066); the key buffer's length rule
+(`key_slots`) on its own and through the route, at bucket edges, with
+nothing on screen and past the capacity; and the PyTorch mirror of K1's
 per-block search (`block_search_plain`) against `searchsorted`, on the test
 scenes and on hand-made prefix sums. All on the CPU."""
 
@@ -16,10 +19,12 @@ from scorp_tpu_torch.ops.raster import common as tc
 from scorp_tpu_torch.ops.raster import surfel as ts
 from scorp_tpu_torch.ops.raster.expand import (
     BLOCK_SLOTS,
+    SLOT_BUCKET,
     block_search_plain,
     expand_inputs,
     expand_keys,
     expand_keys_plain,
+    key_slots,
     warp_search_plain,
 )
 from scorp_tpu_torch.ops.raster.sort import sort_keys
@@ -88,8 +93,18 @@ def _int64_reference(x):
     return s >> x.bits_g, s & ((1 << x.bits_g) - 1), kept
 
 
+def _full_capacity_route(x, k2):
+    """The route as the full-capacity form gave it: K1 over all k_cap slots,
+    decoded from the int64 reference and cut to the stream's k2 slots ->
+    (gid [k2], tile_start, tile_count)."""
+    tile, rank, _ = _int64_reference(x._replace(slots=x.k_cap))
+    start, count = tc._tile_bounds(tile[:k2], x.num_tiles)
+    return x.order[rank[:k2]].to(torch.int32), start, count
+
+
 @pytest.mark.parametrize("kind", ["no_cull", "cull", "surfel"])
-@pytest.mark.parametrize("k_cap,stream_keys", [(1 << 14, 0), (256, 0), (1 << 14, 64)])
+@pytest.mark.parametrize("k_cap,stream_keys", [(1 << 14, 0), (256, 0), (1 << 14, 64),
+                                               (1 << 20, 0)])
 def test_int32_route_equals_the_int64_form(kind, k_cap, stream_keys):
     prep, geo, geo2, cull = _case(kind)
     x = expand_inputs(prep, W, H, k_cap, cull, geo, geo2)
@@ -108,13 +123,17 @@ def test_int32_route_equals_the_int64_form(kind, k_cap, stream_keys):
     cfg = RasterConfig(max_keys=k_cap, stream_keys=stream_keys)
     k2 = min(cfg.stream_cap, k_cap)
     r = tc.route_stream(prep, W, H, cfg, geo=geo, geo2=geo2)
-    ref_start, ref_count = tc._tile_bounds(ref_tile[:k2], x.num_tiles)
-    assert torch.equal(r.gid, order[ref_rank[:k2]].to(torch.int32))
+    ref_gid, ref_start, ref_count = _full_capacity_route(x, k2)
+    live = int(r.tile_count.sum())
+    assert r.gid.shape == (min(k2, x.slots),)
+    assert torch.equal(r.gid[:live], ref_gid[:live])
     assert torch.equal(r.tile_start, ref_start) and torch.equal(r.tile_count, ref_count)
     ref_dropped = max(int(total) - k_cap, 0) + max(int(ref_kept) - k2, 0)
     assert int(r.num_dropped_keys) == ref_dropped
     if k_cap == 256 or stream_keys:
         assert ref_dropped > 0
+    if k_cap > SLOT_BUCKET:  # the sizing engages: one bucket for a few thousand keys
+        assert x.slots == SLOT_BUCKET and int(total) < SLOT_BUCKET
 
 
 def test_sort_keys_on_cpu_is_torch_sort():
@@ -161,7 +180,100 @@ def test_int64_route_past_262144_rows_equals_the_int32_one():
         assert torch.equal(a, b)
 
 
-# --- (d) the mirror of K1's per-block search --------------------------------
+# --- (d) the key buffer's length: the frame's keys, not the capacity --------
+
+B = SLOT_BUCKET
+
+
+@pytest.mark.parametrize("total,k_cap,slots", [
+    (0, 1 << 25, B),                  # nothing on screen: one bucket
+    (1, 1 << 25, B),
+    (B, 1 << 25, B),                  # on a bucket's edge
+    (B + 1, 1 << 25, 2 * B),          # one past it
+    (3_000_000, 1 << 25, 12 * B),     # a room-sized frame
+    ((1 << 25) - 1, 1 << 25, 1 << 25),
+    ((1 << 25) + 5, 1 << 25, 1 << 25),  # past the capacity: the capacity
+    (0, 256, 256),                    # a capacity under one bucket
+    (300, 256, 256),
+    (B + 1, B + 7, B + 7),            # a capacity that is no whole bucket
+])
+def test_key_slots_follow_the_bucket_rule(total, k_cap, slots):
+    assert key_slots(total, k_cap) == slots
+
+
+def test_key_slots_take_at_most_128_lengths_at_2_25():
+    lengths = {key_slots(total, 1 << 25) for total in range(0, (1 << 26) + B, B // 3)}
+    assert len(lengths) == 128 and max(lengths) == 1 << 25
+
+
+def _rect_prep(rects, width=1600, height=1066):
+    """A hand-made Preprocessed with the given binning rects (tiles, half-open)
+    and cull ellipses that admit every tile of their rect (a zero conic)."""
+    n = len(rects)
+    rect = torch.as_tensor(rects, dtype=torch.int32).reshape(n, 4)
+    valid = (rect[:, 2] > rect[:, 0]) & (rect[:, 3] > rect[:, 1])
+    center = (rect[:, :2] + rect[:, 2:]).to(torch.float32) * (tc.TILE / 2)
+    return tc.Preprocessed(
+        xy=center, depth=torch.arange(1, n + 1, dtype=torch.float32),
+        conic=torch.zeros(n, 3), color=torch.full((n, 3), 0.5),
+        opacity=torch.full((n,), 0.9), radii=valid.to(torch.int32) * 8, rect=rect,
+        valid=valid)
+
+
+def _edge_case(kind):
+    """(rects, k_cap): 64 rects of 64 x 64 tiles hold exactly one bucket of
+    keys; one more 1-tile rect passes it."""
+    full = [(0, 0, 64, 64)] * 64
+    if kind == "nothing_on_screen":
+        return [(0, 0, 0, 0)] * 5, 3 * B
+    if kind == "on_the_edge":
+        return full, 3 * B
+    if kind == "one_past":
+        return full + [(99, 66, 100, 67)], 3 * B
+    return full, 1000  # past the capacity
+
+
+@pytest.mark.parametrize("kind,total,slots", [("nothing_on_screen", 0, B),
+                                              ("on_the_edge", B, B),
+                                              ("one_past", B + 1, 2 * B),
+                                              ("past_the_capacity", B, 1000)])
+def test_sized_route_at_the_bucket_edges(kind, total, slots):
+    """The route sized by the frame's keys against the full-capacity decode
+    where the length rule turns: gid on the live prefix, tile ranges and
+    dropped keys equal; gid's length min(k2, slots); the counters add the
+    slots and the capacity once per call."""
+    rects, k_cap = _edge_case(kind)
+    prep = _rect_prep(rects)
+    x = expand_inputs(prep, 1600, 1066, k_cap, True)
+    assert int(x.total) == total and x.slots == slots == key_slots(total, k_cap)
+    cfg = RasterConfig(max_keys=k_cap)
+    slots0, capacity0 = tc.route_stream.slots, tc.route_stream.capacity
+    r = tc.route_stream(prep, 1600, 1066, cfg)
+    assert (tc.route_stream.slots - slots0, tc.route_stream.capacity - capacity0) == (
+        slots, k_cap)
+    ref_gid, ref_start, ref_count = _full_capacity_route(x, k_cap)
+    live = int(r.tile_count.sum())
+    assert live == min(total, k_cap)  # the zero conic keeps every key
+    assert r.gid.shape == (slots,)
+    assert torch.equal(r.gid[:live], ref_gid[:live])
+    assert torch.equal(r.tile_start, ref_start) and torch.equal(r.tile_count, ref_count)
+    assert int(r.num_dropped_keys) == max(total - k_cap, 0)
+
+
+@pytest.mark.parametrize("k_cap,stream_keys", [(1 << 20, 0), (1 << 20, 1000), (256, 0)])
+def test_route_counters_add_slots_and_capacity_per_call(k_cap, stream_keys):
+    prep, geo, geo2, _ = _case("surfel")
+    cfg = RasterConfig(max_keys=k_cap, stream_keys=stream_keys)
+    slots = expand_inputs(prep, W, H, k_cap, True, geo, geo2).slots
+    slots0, capacity0 = tc.route_stream.slots, tc.route_stream.capacity
+    for calls in (1, 2, 3):
+        tc.route_stream(prep, W, H, cfg, geo=geo, geo2=geo2)
+        assert tc.route_stream.slots - slots0 == calls * slots
+        assert tc.route_stream.capacity - capacity0 == calls * k_cap
+    assert slots == min(k_cap, B)
+
+
+# --- (e) the mirror of K1's per-block search --------------------------------
 
 def _starts(counts, k_cap):
     counts = torch.as_tensor(counts, dtype=torch.int64)
