@@ -883,7 +883,9 @@ def phase_parity_mid(args, device):
     """Phase 3a: K1 and K2 against their plain versions at 50k / 800x600."""
     import torch
 
-    from scorp_tpu_torch.ops.raster.common import bin_stream, grid_dims, RasterConfig
+    from scorp_tpu_torch.ops.raster.common import (
+        RasterConfig, grid_dims, route_stream, stream_table,
+    )
     from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
     from scorp_tpu_torch.ops.raster.expand import expand_inputs
 
@@ -893,8 +895,8 @@ def phase_parity_mid(args, device):
     k1_err = check_expand(expand_inputs(prep, w, h, k_cap, cull=True), "mid")
 
     bg = torch.tensor([0.2, 0.3, 0.4], device=device)
-    bins = bin_stream(prep, w, h, RasterConfig(max_keys=k_cap))
-    args2 = (bins.data, bins.tile_start, bins.tile_count, bg)
+    route = route_stream(prep, w, h, RasterConfig(max_keys=k_cap))
+    args2 = (stream_table(prep)[route.gid].contiguous(), route.tile_start, route.tile_count, bg)
     tiles_x = grid_dims(w, h)[0]
     k2_err = check_composite(composite(*args2, tiles_x=tiles_x, track_ncontrib=True),
                              composite_plain(*args2, tiles_x=tiles_x, track_ncontrib=True),
@@ -931,7 +933,7 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
 
     from scorp_tpu_torch.core.plyio import load_gaussian_ply
     from scorp_tpu_torch.ops.raster.common import (
-        _expand_keys_core, _tile_bounds, bin_stream, grid_dims, route_stream, stream_table,
+        _expand_keys_core, _tile_bounds, grid_dims, route_stream, stream_table,
     )
     from scorp_tpu_torch.ops.raster.composite import composite, composite_plain
     from scorp_tpu_torch.ops.raster.expand import (
@@ -943,7 +945,7 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     from scorp_tpu_torch.render import default_raster_config, render
     from scorp_tpu_torch.scene import Scene
     from scorp_tpu_torch.config import ModelParams
-    from scorp_tpu_torch.train import from_gaussian_data
+    from scorp_tpu_torch.train import from_gaussian_data, raster_inputs
 
     w, h = args.width, args.height
     ply = os.path.join(model_dir, "refined_aligned", "refined_1000.ply")
@@ -962,25 +964,19 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
           f"slots / capacity over its calls: {route_stream.slots} / {route_stream.capacity} = "
           f"{route_stream.slots / max(route_stream.capacity, 1):.4f}")
 
-    p = state.params
-
     def prep_fn():
-        return preprocess_kernel(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
-                                 shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
-                                 scales=torch.exp(p["scaling"]), quats=p["rotation"],
-                                 alive=state.alive)
+        return preprocess_kernel(cam=cam, sh_degree=3,
+                                 **raster_inputs(state.params, state.alive))
 
     prep = prep_fn()
     n = prep.xy.shape[0]
     # the fused preprocess against its plain version on render()'s inputs
-    pre_in = (p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam)
-    pre_kw = dict(shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
-                  scales=torch.exp(p["scaling"]), quats=p["rotation"], alive=state.alive)
-    pre_err = check_preprocess(preprocess_kernel(*pre_in, **pre_kw),
-                               preprocess_plain(*pre_in, **pre_kw), "full width")
-    pre_ms = kernel_ms(lambda: preprocess_kernel(*pre_in, **pre_kw), "::preprocess_kernel<")
-    pre_call_ms = cuda_ms(lambda: preprocess_kernel(*pre_in, **pre_kw), 20)
-    pre_plain_ms = cuda_ms(lambda: preprocess_plain(*pre_in, **pre_kw), 5)
+    pre_kw = dict(cam=cam, sh_degree=3, **raster_inputs(state.params, state.alive))
+    pre_err = check_preprocess(preprocess_kernel(**pre_kw), preprocess_plain(**pre_kw),
+                               "full width")
+    pre_ms = kernel_ms(lambda: preprocess_kernel(**pre_kw), "::preprocess_kernel<")
+    pre_call_ms = cuda_ms(lambda: preprocess_kernel(**pre_kw), 20)
+    pre_plain_ms = cuda_ms(lambda: preprocess_plain(**pre_kw), 5)
     # bytes: per row the inputs read (xyz 12, opacity 4, scales 12, quats 16,
     # 16 SH bands 192, alive 1) and the outputs written (xy 8, depth 4, conic
     # 12, color 12, radii 4, rect 16, valid 1), and the camera's 37 floats;
@@ -1025,9 +1021,10 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     sort_radix_ms = {name: kernel_ms(fn, "RadixSort", per_call=None)
                      for name, fn in sorts.items()}
 
-    bins = bin_stream(prep, w, h, cfg)
+    route = route_stream(prep, w, h, cfg)
+    data = stream_table(prep)[route.gid].contiguous()
     tiles_x = grid_dims(w, h)[0]
-    args2 = (bins.data, bins.tile_start, bins.tile_count, bg)
+    args2 = (data, route.tile_start, route.tile_count, bg)
     k2_ms = kernel_ms(lambda: composite(*args2, tiles_x=tiles_x), "::composite_kernel")
     k2_call_ms = cuda_ms(lambda: composite(*args2, tiles_x=tiles_x), 20)
     k2_plain_ms = cuda_ms(lambda: composite_plain(*args2, tiles_x=tiles_x), 1)
@@ -1035,9 +1032,9 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     k2_err = check_composite(
         k2_out, composite_plain(*args2, tiles_x=tiles_x, track_ncontrib=True), "full width")
     pairs = int(k2_out[3].to(torch.int64).sum())
-    slots = gauss_slot_counts(bins.data, bins.tile_start, bins.tile_count, k2_out[3], tiles_x)
-    n_tiles = bins.tile_start.shape[0]
-    streamed = int(bins.tile_count.to(torch.int64).sum())
+    slots = gauss_slot_counts(data, route.tile_start, route.tile_count, k2_out[3], tiles_x)
+    n_tiles = route.tile_start.shape[0]
+    streamed = int(route.tile_count.to(torch.int64).sum())
     k2_bytes = streamed * 40 + n_tiles * 8 + 12 + n_tiles * 256 * 5 * 4
     k2_bytes_s = k2_bytes / HBM_BYTES_PER_S
     k2_ops_s = pairs * K2_FLOPS_PER_PAIR / F32_FLOPS_PER_S
@@ -1295,7 +1292,8 @@ def phase_train_step(args, device):
     from scorp_tpu_torch.ops.raster.expand import expand_inputs
     from scorp_tpu_torch.ops.raster.fused_preprocess import preprocess_kernel
     from scorp_tpu_torch.render import tuned_raster_config
-    from scorp_tpu_torch.train import OptParams, from_gaussian_data, init_adam, train_step
+    from scorp_tpu_torch.train import (OptParams, from_gaussian_data, init_adam, raster_inputs,
+                                       train_step)
 
     w, h = args.width, args.height
     xyz, shs, scales, quats, opacity = bench_scene_arrays(args.n, args.seed)
@@ -1371,12 +1369,9 @@ def phase_train_step(args, device):
           f"device busy {loss_busy:.3f} ms, {dispatched_ops(loss_fn)} ATen ops")
 
     # K3 on the step's own inputs (the routing of the step's forward)
-    p = state.params
     with torch.no_grad():
-        prep = preprocess_kernel(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
-                                 shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
-                                 scales=torch.exp(p["scaling"]), quats=p["rotation"],
-                                 alive=state.alive)
+        prep = preprocess_kernel(cam=cam, sh_degree=3,
+                                 **raster_inputs(state.params, state.alive))
         k3_args, tiles_x, route, k2_out = backward_inputs(prep, w, h, cfg, args.seed + 5,
                                                           device)
         x = expand_inputs(prep, w, h, cfg.max_keys, cull=True)
@@ -1444,36 +1439,32 @@ def surfel_gaussians(n: int, seed: int):
                         scaling=np.log(scales[:, :2]), rotation=quats)
 
 
-def surfel_stream(xyz, opacity, cam, w, h, cfg, **kw):
+def surfel_stream(means3d, opacities, cam, w, h, cfg, **kw):
     """The surfel routing as `rasterize_surfel` builds it, without grad:
     (prep, K1's inputs with the conic and the circle, routing, per-surfel
     table, stream rows)."""
     import torch
 
     from scorp_tpu_torch.ops.raster import (
-        preprocess_surfel, route_stream, surfel_cull_ellipses, surfel_prep_to_common,
-        surfel_table,
+        preprocess_surfel, route_stream, surfel_cull_ellipses, surfel_table,
     )
     from scorp_tpu_torch.ops.raster.expand import expand_inputs
 
     with torch.no_grad():
-        prep = preprocess_surfel(xyz, opacity, cam, **kw)
+        prep = preprocess_surfel(means3d, opacities, cam, **kw)
         ell, circ = surfel_cull_ellipses(prep)
-        common = surfel_prep_to_common(prep)
-        x = expand_inputs(common, w, h, cfg.max_keys, True, ell, circ)
-        route = route_stream(common, w, h, cfg, geo=ell, geo2=circ)
+        x = expand_inputs(prep, w, h, cfg.max_keys, True, ell, circ)
+        route = route_stream(prep, w, h, cfg, geo=ell, geo2=circ)
         table = surfel_table(prep)
         data = table[route.gid].contiguous()
     return prep, x, route, table, data
 
 
 def surfel_stream_of_state(state, cam, w, h, cfg):
-    import torch
+    from scorp_tpu_torch.train import raster_inputs
 
-    p = state.params
-    return surfel_stream(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam, w, h, cfg,
-                         shs=torch.cat([p["f_dc"], p["f_rest"]], 1), sh_degree=3,
-                         scales=torch.exp(p["scaling"]), quats=p["rotation"], alive=state.alive)
+    return surfel_stream(cam=cam, w=w, h=h, cfg=cfg, sh_degree=3,
+                         **raster_inputs(state.params, state.alive))
 
 
 def check_surfel_forward(got, ref, label: str, kernel: str) -> float:
@@ -1669,7 +1660,7 @@ def phase_surfel_eval(args, device, scene_dir):
 
     from scorp_tpu_torch.apps import render_2dgs
     from scorp_tpu_torch.core.plyio import save_gaussian_ply
-    from scorp_tpu_torch.ops.raster import RasterConfig, grid_dims, surfel_prep_to_common
+    from scorp_tpu_torch.ops.raster import RasterConfig, grid_dims
     from scorp_tpu_torch.ops.raster.common import _tile_bounds, sorted_expansion
     from scorp_tpu_torch.ops.raster.expand import expand_keys
     from scorp_tpu_torch.ops.raster.sort import sort_keys
@@ -1729,8 +1720,7 @@ def phase_surfel_eval(args, device, scene_dir):
     # K4 on the uncut stream (every key of every rect) gives the same images
     with torch.no_grad():
         total = int(x.total)
-        st, gs, order, _, _ = sorted_expansion(surfel_prep_to_common(prep), w, h, total + 1,
-                                               cull=False)
+        st, gs, order, _, _ = sorted_expansion(prep, w, h, total + 1, cull=False)
         start, count = _tile_bounds(st[:total], route.tile_start.shape[0])
         uncut = table[order[gs[:total]]].contiguous()
     k4_uncut = surfel_composite(uncut, start, count, bg, tiles_x=tiles_x)

@@ -67,10 +67,10 @@
 //   d_table with one atomicAdd each (the -2 ln2 of column 20 applied
 //   there): one coalesced RED per row and block.
 // This replaces the TPU's chunk-grid gradient blocks, side carries and
-// compact_block_scatter (and with them the TPU-only bwd_block_frac knob),
-// which existed because a TPU grid has no atomics; the order of the atomic
-// adds changes from run to run, so K6 is not bit-identical to its plain
-// version.
+// compact_block_scatter (and with them the TPU-only knob that sized those
+// blocks), which existed because a TPU grid has no atomics; the order of
+// the atomic adds changes from run to run, so K6 is not bit-identical to
+// its plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,29 +1,27 @@
-"""Tile-based Gaussian rasterizer, differentiable.
-
-`rasterize` runs preprocess -> key expansion (K1) + a keys-only radix sort
-of its packed int32 keys (int64 past 2^31, `sort.py`) -> stream gather ->
-forward compositor (K2). It dispatches on the tensors' device:
+"""Tile-based Gaussian rasterizers, differentiable: `rasterize` (3DGS) and
+`rasterize_surfel` (2DGS surfels). They dispatch on the tensors' device:
 the kernel wrappers launch the CUDA kernels for CUDA tensors and run their
-plain PyTorch versions for CPU tensors. Preprocess is the fused kernel
-(`preprocess_kernel`) unless an input requires grad.
+plain PyTorch versions for CPU tensors. A call is the grad path when grad
+is enabled and an input requires it, else the eval path. Both rasterizers
+run one sequence:
 
-When an input requires grad, preprocess runs as its plain version
-(`preprocess_plain`) and is recorded by autograd, the
-routing runs under no_grad on the detached result, and `_Composite` (a
-`torch.autograd.Function`) takes the per-gaussian table [N, 10]: its
-forward gathers the stream rows and runs K2 with n_contrib and t_final,
-its backward runs K3, which adds each stream row's gradient onto its
-gaussian's table row, and d_bg = Σ T_final·g_color. Autograd then carries
-the table's gradient back through conic_chol, log2_opacity and preprocess.
-
-`rasterize_surfel` is the 2DGS surfel rasterizer, built the same way:
-`preprocess_surfel` under autograd; the routing under no_grad, with K1
-culling by the surfel's two ellipses (`surfel_cull_ellipses`);
-`_SurfelComposite` takes the per-surfel table [N, 21] (`surfel_table`),
-gathers its rows by `gid` and runs K5 forward and K6 + d_bg backward, so
-autograd carries d_adj back to M through `surfel_adj`'s cross products.
-Without an input that requires grad it runs the eval compositor K4 and
-saves nothing.
+1. preprocess and the per-primitive table. 3DGS: the fused kernel
+   (`preprocess_kernel`) on the eval path, its plain version
+   (`preprocess_plain`), which autograd records, on the grad path; the
+   [N, 10] table (`stream_table`). Surfels: `preprocess_surfel` and the
+   [N, 21] table (`surfel_table`), which autograd records on the grad path;
+2. the routing (`route_stream`: key expansion K1 + a keys-only radix sort
+   of its packed int32 keys, int64 past 2^31, `sort.py`) under no_grad;
+   surfels cull by their two ellipses (`surfel_cull_ellipses`);
+3. on the grad path, a `torch.autograd.Function` (`_Composite`,
+   `_SurfelComposite`) that gathers the table's rows by `gid` and runs the
+   training compositor (K2 with n_contrib and t_final; K5); its backward
+   (K3; K6) adds each stream row's gradient onto its table row, and
+   d_bg = Σ T_final·g_color. Autograd carries the table's gradient back
+   through conic_chol, log2_opacity and preprocess (through `surfel_adj`'s
+   cross products to M for surfels). On the eval path, the gather of the
+   table's rows by `gid` and the eval compositor (K2; K4), with nothing
+   saved and no n_contrib tracked.
 """
 
 from __future__ import annotations
@@ -39,9 +37,8 @@ from .common import (  # noqa: F401
     TILE,
     Preprocessed,
     RasterConfig,
-    StreamBins,
     StreamRouting,
-    bin_stream,
+    expected_depth,
     grid_dims,
     preprocess_plain,
     route_stream,
@@ -55,7 +52,6 @@ from .surfel import (  # noqa: F401
     SurfelPrep,
     preprocess_surfel,
     surfel_cull_ellipses,
-    surfel_prep_to_common,
     surfel_table,
 )
 from .surfel_backward import surfel_backward
@@ -68,7 +64,16 @@ class RasterOutput(NamedTuple):
     alpha: torch.Tensor        # [1, H, W]
     radii: torch.Tensor        # [N] int32
     num_dropped_keys: torch.Tensor  # [] keys that did not fit the capacities
-    num_dropped_tail: torch.Tensor  # [] always 0: there are no per-tile lists
+
+
+def _needs_grad(cam: Camera, tensors) -> bool:
+    """Raise unless every given tensor lies on the camera's device; True when
+    the call is the grad path: grad is enabled and an input requires it."""
+    dev = cam.device
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"input on {t.device}, but the camera is on {dev}")
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 class _Composite(torch.autograd.Function):
@@ -125,15 +130,8 @@ def rasterize(
     `rasterize_pallas`); every tensor must lie on that device. Without any
     input that requires grad this is the eval path: nothing is saved for a
     backward and no n_contrib is tracked."""
-    tensors = [means3d, opacities, bg, shs, colors_precomp, scales, quats,
-               cov3d_precomp, screen_deltas, alive]
-    dev = cam.device
-    for t in tensors:
-        if t is not None and t.device != dev:
-            raise ValueError(f"input on {t.device}, but the camera is on {dev}")
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
+    needs_grad = _needs_grad(cam, [means3d, opacities, bg, shs, colors_precomp, scales, quats,
+                                   cov3d_precomp, screen_deltas, alive])
     w, h = cam.width, cam.height
     tiles_x = grid_dims(w, h)[0]
     # the kernel has no backward: autograd records the plain version
@@ -146,26 +144,24 @@ def rasterize(
             scale_modifier=scale_modifier, screen_deltas=screen_deltas, alive=alive,
         )
     bg = bg.to(torch.float32).contiguous()
+    with torch.no_grad():
+        route = route_stream(prep, w, h, cfg)
     if needs_grad:
-        with torch.no_grad():
-            route = route_stream(prep, w, h, cfg)
         color_t, depth_t, alpha_t = _Composite.apply(
             stream_table(prep), route.gid, route.tile_start, route.tile_count, bg, tiles_x)
-        dropped = route.num_dropped_keys
     else:
         with torch.no_grad():
-            bins = bin_stream(prep, w, h, cfg)
+            with span("raster.gather"):
+                data = stream_table(prep)[route.gid].contiguous()
             with span("raster.composite"):
                 color_t, depth_t, alpha_t, _ = composite(
-                    bins.data, bins.tile_start, bins.tile_count, bg, tiles_x=tiles_x)
-        dropped = bins.num_dropped_keys
+                    data, route.tile_start, route.tile_count, bg, tiles_x=tiles_x)
     return RasterOutput(
         tiles_cp_to_image(color_t, w, h),
         tiles_cp_to_image(depth_t, w, h),
         tiles_cp_to_image(alpha_t, w, h),
         prep.radii,
-        dropped,
-        torch.zeros((), dtype=torch.int64, device=dev),
+        route.num_dropped_keys,
     )
 
 
@@ -222,15 +218,8 @@ def rasterize_surfel(
     `scorp_tpu`'s `rasterize_surfel_pallas`; `scales` is [N, 2]); every
     tensor must lie on that device. Without any input that requires grad
     this is the eval path (K4, nothing saved for a backward)."""
-    tensors = [means3d, opacities, bg, shs, colors_precomp, scales, quats, screen_deltas,
-               alive]
-    dev = cam.device
-    for t in tensors:
-        if t is not None and t.device != dev:
-            raise ValueError(f"input on {t.device}, but the camera is on {dev}")
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
+    needs_grad = _needs_grad(cam, [means3d, opacities, bg, shs, colors_precomp, scales, quats,
+                                   screen_deltas, alive])
     w, h = cam.width, cam.height
     tiles_x = grid_dims(w, h)[0]
     with torch.set_grad_enabled(needs_grad), span("raster.preprocess"):
@@ -244,19 +233,19 @@ def rasterize_surfel(
     with torch.no_grad():
         with span("raster.surfel_cull"):
             ell, circ = surfel_cull_ellipses(prep)
-        route = route_stream(surfel_prep_to_common(prep), w, h, cfg, geo=ell, geo2=circ)
+        route = route_stream(prep, w, h, cfg, geo=ell, geo2=circ)
     if needs_grad:
         outs = _SurfelComposite.apply(table, route.gid, route.tile_start, route.tile_count,
                                       bg, tiles_x)
     else:
-        with span("raster.gather"):
-            data = table[route.gid].contiguous()
-        with span("raster.composite"):
-            outs = surfel_composite(data, route.tile_start, route.tile_count, bg,
-                                    tiles_x=tiles_x)
+        with torch.no_grad():
+            with span("raster.gather"):
+                data = table[route.gid].contiguous()
+            with span("raster.composite"):
+                outs = surfel_composite(data, route.tile_start, route.tile_count, bg,
+                                        tiles_x=tiles_x)
     return SurfelOutput(
         *(tiles_cp_to_image(o, w, h) for o in outs),
         prep.radii,
         route.num_dropped_keys,
-        torch.zeros((), dtype=torch.int64, device=dev),
     )

@@ -22,11 +22,11 @@ binning — instead of atomic key duplication + per-key radix sort:
      else int64) keeps depth order within each tile;
   4. per-tile ranges come from a searchsorted over the sorted tile ids.
 
-The stream form (per-key rows [K, 10] + per-tile start/count) feeds the
-forward compositor (kernel K2, `composite.py`); `route_stream` gives the
-integer routing alone (the gaussian row of every stream slot), which the
-differentiable rasterizer uses to gather the table in the forward and to
-scatter its gradient in the backward (kernel K3, `backward.py`).
+`route_stream` gives the integer routing (the gaussian row of every
+stream slot + per-tile start/count). Both rasterizers gather their
+per-primitive table (`stream_table`, `surfel.surfel_table`) by it for the
+compositors, and the grad path scatters the table's gradient back along it
+(kernels K3, `backward.py`, and K6).
 
 `_expand_keys_core` is the expansion golden: the same routing as K1, with
 the JAX package's cull arithmetic (rect-relative 1/32 px fixed-point
@@ -37,7 +37,7 @@ kept count brackets K1's (0.8·golden ≤ K1 ≤ golden + 1000).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple, Union
 
 import torch
 
@@ -45,11 +45,14 @@ from ...core import sh as sh_lib
 from ...core.camera import Camera
 from ...utils.trace import span
 
+if TYPE_CHECKING:
+    from .surfel import SurfelPrep
+
 TILE = 16  # pixels per tile side
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
-DATA_ROWS = 10  # stream row layout, see StreamBins
+DATA_ROWS = 10  # stream row layout, see stream_table
 
 
 class RasterConfig(NamedTuple):
@@ -62,10 +65,6 @@ class RasterConfig(NamedTuple):
     # ellipse-tile cull drops 15-50% of expanded keys, so the stream the
     # compositor reads can be smaller than the expansion buffer
     stream_keys: int = 0
-    # Kept for interface parity with scorp_tpu; it has no effect here. It
-    # tuned the TPU's block-compacted backward scatter; the CUDA backward
-    # (a later slice) reduces gradients with atomics instead.
-    bwd_block_frac: float = 0.0
 
     @property
     def stream_cap(self) -> int:
@@ -93,17 +92,11 @@ class StreamRouting(NamedTuple):
     num_dropped_keys: torch.Tensor  # [] int64
 
 
-class StreamBins(NamedTuple):
-    """Depth-ordered per-tile key stream for the forward compositor.
-
-    `data` columns: 0-1 xy, 2-4 conic Cholesky factor × sqrt(log2 e)
-    (conic_chol), 5-7 color, 8 depth, 9 log2(opacity) (log2_opacity).
-    """
-
-    data: torch.Tensor         # [min(K2, slots), 10] f32, grouped by tile, depth-ascending
-    tile_start: torch.Tensor   # [num_tiles] int32 offsets into the stream
-    tile_count: torch.Tensor   # [num_tiles] int32
-    num_dropped_keys: torch.Tensor  # [] int64
+# A preprocess output that routing takes: it reads `depth`, `valid`, `rect`
+# and the length of `xy`, and, where no cull ellipse is given, the 3DGS
+# ellipse's fields `xy`, `conic` and `opacity` (`default_cull_geo`). The
+# surfel path always gives its two ellipses.
+Routable = Union[Preprocessed, "SurfelPrep"]
 
 
 def grid_dims(width: int, height: int) -> tuple[int, int]:
@@ -331,7 +324,7 @@ def conic_chol(conic: torch.Tensor) -> torch.Tensor:
     return k2 * torch.stack([l11, l21, l22], dim=1)
 
 
-def depth_order(prep: Preprocessed) -> torch.Tensor:
+def depth_order(prep: Routable) -> torch.Tensor:
     """Stable depth sort, invalid gaussians last. Invalid gaussians have
     zeroed rects, so their tile counts are 0 and the valid ones form a
     contiguous prefix of the order."""
@@ -483,7 +476,7 @@ def _tile_bounds(sorted_tile: torch.Tensor, num_tiles: int):
     return bounds[:-1].contiguous(), (bounds[1:] - bounds[:-1]).contiguous()
 
 
-def sorted_expansion(prep: Preprocessed, width: int, height: int, k_cap: int,
+def sorted_expansion(prep: Routable, width: int, height: int, k_cap: int,
                      cull: bool = True, geo: torch.Tensor | None = None,
                      geo2: torch.Tensor | None = None):
     """Expansion (kernel K1 on CUDA tensors, its plain version on CPU) +
@@ -504,7 +497,10 @@ def sorted_expansion(prep: Preprocessed, width: int, height: int, k_cap: int,
 
 
 def stream_table(prep: Preprocessed) -> torch.Tensor:
-    """[N, 10] per-gaussian stream rows (see StreamBins), in gaussian order."""
+    """[N, 10] per-gaussian stream rows, in gaussian order, which K2 and K3
+    read gathered by the routing's `gid` (grouped by tile, depth-ascending).
+    Columns: 0-1 xy, 2-4 conic Cholesky factor × sqrt(log2 e) (conic_chol),
+    5-7 color, 8 depth, 9 log2(opacity) (log2_opacity)."""
     return torch.cat(
         [
             prep.xy,
@@ -517,14 +513,16 @@ def stream_table(prep: Preprocessed) -> torch.Tensor:
     )
 
 
-def route_stream(prep: Preprocessed, width: int, height: int, cfg: RasterConfig,
+def route_stream(prep: Routable, width: int, height: int, cfg: RasterConfig,
                  geo: torch.Tensor | None = None,
                  geo2: torch.Tensor | None = None) -> StreamRouting:
     """Expansion + sort -> the gaussian row of every stream slot and the
     per-tile ranges. Integer work only: the training path runs it under
     no_grad on the detached prep, as the JAX package stops gradients at its
-    routing (`pallas.py:324`). `geo`/`geo2` are K1's cull ellipses (default:
-    the 3DGS ellipse; the surfel path passes its conic and circle).
+    routing (`pallas.py:324`). `prep` is either rasterizer's preprocess
+    output (`Routable` says what is read of it). `geo`/`geo2` are K1's cull
+    ellipses (default: the 3DGS ellipse; the surfel path passes its conic
+    and circle).
 
     The stream has min(K2, slots) slots, `slots` the length of K1's key
     buffer (`expand.key_slots`); `route_stream.slots` and
@@ -555,16 +553,6 @@ route_stream.slots = 0
 route_stream.capacity = 0
 
 
-def bin_stream(prep: Preprocessed, width: int, height: int,
-               cfg: RasterConfig) -> StreamBins:
-    """Stream binning for the forward compositor: the routing, then ONE
-    row gather of the per-gaussian table by the stream's gaussian rows."""
-    r = route_stream(prep, width, height, cfg)
-    with span("raster.gather"):
-        data = stream_table(prep)[r.gid].contiguous()
-    return StreamBins(data, r.tile_start, r.tile_count, r.num_dropped_keys)
-
-
 def tiles_cp_to_image(tile_img: torch.Tensor, width: int, height: int) -> torch.Tensor:
     """[num_tiles, C, TILE*TILE] -> [C, H, W] (crop the tile-grid padding)."""
     tiles_x, tiles_y = grid_dims(width, height)
@@ -572,3 +560,11 @@ def tiles_cp_to_image(tile_img: torch.Tensor, width: int, height: int) -> torch.
     img = tile_img.reshape(tiles_y, tiles_x, c, TILE, TILE)
     img = img.permute(2, 0, 3, 1, 4).reshape(c, tiles_y * TILE, tiles_x * TILE)
     return img[:, :height, :width]
+
+
+def expected_depth(depth_accum: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The alpha-normalised depth map: depth_accum / alpha, with alpha taken
+    as 1 where it is 0, and NaN and ±inf set to 0."""
+    one = torch.ones((), dtype=alpha.dtype, device=alpha.device)
+    depth = depth_accum / torch.where(alpha == 0.0, one, alpha)
+    return torch.nan_to_num(depth, nan=0.0, posinf=0.0, neginf=0.0)

@@ -37,7 +37,7 @@ import torch
 from ._build import check_tensor, load
 from .common import (
     TILE,
-    Preprocessed,
+    Routable,
     default_cull_geo,
     depth_order,
     edge_min_q,
@@ -79,7 +79,7 @@ class ExpandInputs(NamedTuple):
     total: torch.Tensor         # [] int64 keys before capacity (not read by the kernel)
 
 
-def expand_inputs(prep: Preprocessed, width: int, height: int, k_cap: int,
+def expand_inputs(prep: Routable, width: int, height: int, k_cap: int,
                   cull: bool, geo: torch.Tensor | None = None,
                   geo2: torch.Tensor | None = None) -> ExpandInputs:
     """The depth sort and prefix sums around the kernel (plain torch), and

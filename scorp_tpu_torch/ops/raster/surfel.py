@@ -26,7 +26,8 @@ FF·(1 − NEAR/z), about 1 ulp away).
 
 `surfel_cull_ellipses` gives K1 two screen ellipses per surfel, the
 UV-disc conic and the low-pass circle; a key is kept iff either admits its
-tile.
+tile. The routing (`common.route_stream`) takes a `SurfelPrep` as it is,
+with these two ellipses.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch.nn.functional as F
 from ...core import sh as sh_lib
 from ...core.camera import Camera
 from ...core.quat import quat_to_rotmat
-from .common import TILE, Preprocessed, _tile_index, grid_dims, log2_opacity
+from .common import TILE, _tile_index, expected_depth, grid_dims, log2_opacity
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -75,7 +76,6 @@ class SurfelOutput(NamedTuple):
     distortion: torch.Tensor    # [1, H, W]
     radii: torch.Tensor
     num_dropped_keys: torch.Tensor
-    num_dropped_tail: torch.Tensor
 
 
 def _t2(opacity: torch.Tensor) -> torch.Tensor:
@@ -260,15 +260,6 @@ def surfel_cull_ellipses(prep: SurfelPrep) -> tuple[torch.Tensor, torch.Tensor]:
     return ell.to(torch.float32), circ.to(torch.float32)
 
 
-def surfel_prep_to_common(prep: SurfelPrep) -> Preprocessed:
-    """Adapter so the shared routing consumes a surfel prep (conic unused)."""
-    return Preprocessed(
-        xy=prep.xy, depth=prep.depth, conic=torch.zeros_like(prep.normal),
-        color=prep.color, opacity=prep.opacity, radii=prep.radii,
-        rect=prep.rect, valid=prep.valid,
-    )
-
-
 def surfel_table(prep: SurfelPrep) -> torch.Tensor:
     """[N, 21] per-surfel stream rows, in surfel order: adj(M) 0-8, zrow
     9-11, xy 12-13, color 14-16, normal 17-19, log2 opacity 20."""
@@ -309,9 +300,7 @@ def surfel_maps(out: SurfelOutput, cam: Camera, depth_ratio: float):
     alpha = out.alpha
     # view -> world normal (row-vector: n_world = n_view @ R_w2c = n_view @ V[:3,:3].T)
     render_normal = (out.normal.permute(1, 2, 0) @ cam.viewmatrix[:3, :3].T).permute(2, 0, 1)
-    one = torch.ones((), dtype=alpha.dtype, device=alpha.device)
-    depth_exp = out.depth_accum / torch.where(alpha == 0.0, one, alpha)
-    depth_exp = torch.nan_to_num(depth_exp, nan=0.0, posinf=0.0, neginf=0.0)
+    depth_exp = expected_depth(out.depth_accum, alpha)
     depth_med = torch.nan_to_num(out.depth_median, nan=0.0, posinf=0.0, neginf=0.0)
     surf_depth = depth_exp * (1.0 - depth_ratio) + depth_ratio * depth_med
     surf_normal = depth_to_normal(cam, surf_depth) * alpha.detach()

@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops.raster import RasterConfig, rasterize
+from ..ops.raster import RasterConfig, expected_depth, rasterize
+from ..train.state import raster_inputs
 from .mesh import Group
 from .train_dp import batch_camera
 
@@ -35,20 +36,14 @@ def dp_render(
     depth [B,1,H,W]), depth being depth_accum / alpha with nan_to_num. With
     a group, each rank passes its `shard_batch` of the cameras and gets the
     whole batch's frames back."""
-    shs = torch.cat([params["f_dc"], params["f_rest"]], dim=1)
     frames = []
     with torch.no_grad():
+        inputs = raster_inputs(params, alive)
         for i in range(cam_batch["viewmatrix"].shape[0]):
-            out = rasterize(
-                params["xyz"], torch.sigmoid(params["opacity"][:, 0]),
-                batch_camera(cam_batch, i, width, height), bg,
-                shs=shs, sh_degree=sh_degree, scales=torch.exp(params["scaling"]),
-                quats=params["rotation"], scale_modifier=1.0, alive=alive, cfg=cfg,
-            )
-            one = torch.ones((), device=out.alpha.device)
-            depth = out.depth_accum / torch.where(out.alpha == 0.0, one, out.alpha)
-            depth = torch.nan_to_num(depth, nan=0.0, posinf=0.0, neginf=0.0)
-            frames.append(torch.cat([out.color, out.alpha, depth]))
+            out = rasterize(cam=batch_camera(cam_batch, i, width, height), bg=bg,
+                            sh_degree=sh_degree, cfg=cfg, **inputs)
+            frames.append(torch.cat([out.color, out.alpha,
+                                     expected_depth(out.depth_accum, out.alpha)]))
     local = torch.stack(frames)                    # [B / world, 5, H, W]
     if group is not None:
         parts = [torch.empty_like(local) for _ in range(group.world_size)]

@@ -31,9 +31,9 @@ import torch.distributed as dist
 
 from ..core.camera import Camera
 from ..ops.losses import l1_loss, ssim
-from ..ops.raster import RasterConfig, rasterize, rasterize_surfel
+from ..ops.raster import RasterConfig, expected_depth, rasterize, rasterize_surfel
 from ..ops.raster.surfel import depth_to_normal, surfel_maps
-from ..train.state import AdamState, GaussianState, adam_update, expon_lr
+from ..train.state import AdamState, GaussianState, adam_update, expon_lr, raster_inputs
 from ..train.step import (OptParams, _masked_mean, _masked_minmax_normalize, compute_lrs,
                           isotropic)
 from .mesh import Group
@@ -72,19 +72,13 @@ def _depth_terms(rend_depth, d_cam, d_est, iteration, opt, has_depth_cam, has_de
 
 def _loss_3d(params, deltas, alive, cam, gt, d_cam, d_est, iteration, bg, *, opt,
              sh_degree, cfg, has_depth_cam, has_depth_est):
-    out = rasterize(
-        params["xyz"], torch.sigmoid(params["opacity"][:, 0]), cam, bg,
-        shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1), sh_degree=sh_degree,
-        scales=torch.exp(params["scaling"]), quats=params["rotation"],
-        screen_deltas=deltas, alive=alive, cfg=cfg,
-    )
+    out = rasterize(cam=cam, bg=bg, sh_degree=sh_degree, screen_deltas=deltas, cfg=cfg,
+                    **raster_inputs(params, alive))
     image = out.color
     ll1 = l1_loss(image, gt)
     loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - ssim(image, gt))
     if iteration > opt.depth_from_iter:
-        one = torch.ones((), device=image.device)
-        rend_depth = out.depth_accum / torch.where(out.alpha == 0.0, one, out.alpha)
-        rend_depth = torch.nan_to_num(rend_depth, nan=0.0, posinf=0.0, neginf=0.0)
+        rend_depth = expected_depth(out.depth_accum, out.alpha)
         loss = loss + _depth_terms(rend_depth, d_cam, d_est, iteration, opt,
                                    has_depth_cam, has_depth_est)
     return loss, ll1, out.radii
@@ -92,12 +86,8 @@ def _loss_3d(params, deltas, alive, cam, gt, d_cam, d_est, iteration, bg, *, opt
 
 def _loss_2d(params, deltas, alive, cam, gt, d_cam, d_est, iteration, bg, *, opt,
              sh_degree, cfg, has_depth_cam, has_depth_est):
-    out = rasterize_surfel(
-        params["xyz"], torch.sigmoid(params["opacity"][:, 0]), cam, bg,
-        shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1), sh_degree=sh_degree,
-        scales=torch.exp(params["scaling"]), quats=params["rotation"],
-        screen_deltas=deltas, alive=alive, cfg=cfg,
-    )
+    out = rasterize_surfel(cam=cam, bg=bg, sh_degree=sh_degree, screen_deltas=deltas, cfg=cfg,
+                           **raster_inputs(params, alive))
     image = out.color
     rend_normal, rend_depth, surf_normal = surfel_maps(out, cam, opt.depth_ratio)
     ll1 = l1_loss(image, gt)

@@ -32,12 +32,7 @@ from PIL import Image
 from ..core.camera import Camera
 from ..ops.raster import RasterConfig, preprocess_kernel, rasterize, rasterize_surfel
 from ..render import default_raster_config
-from ..train.state import GaussianState
-
-
-def _gaussian_args(state: GaussianState) -> dict:
-    p = state.params
-    return dict(scales=torch.exp(p["scaling"]), quats=p["rotation"], alive=state.alive)
+from ..train.state import GaussianState, raster_inputs
 
 
 def vote_step(state: GaussianState, cam: Camera, signed_mask: torch.Tensor,
@@ -45,12 +40,11 @@ def vote_step(state: GaussianState, cam: Camera, signed_mask: torch.Tensor,
     """One camera's signed gradient votes [N]: the gradient of the mean over
     H·W·3 of render·signed_mask with respect to all-ones override colours,
     column 0 times √3 (the reference's norm scaling)."""
-    p = state.params
     raster_fn = rasterize_surfel if surfel else rasterize
     ones = torch.ones((state.capacity, 3), device=cam.device, requires_grad=True)
     with torch.enable_grad():
-        out = raster_fn(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam, bg,
-                        colors_precomp=ones, cfg=cfg, **_gaussian_args(state))
+        out = raster_fn(cam=cam, bg=bg, cfg=cfg,
+                        **raster_inputs(state.params, state.alive, ones))
         loss = (out.color * signed_mask[None, :, :]).mean()
         (grad,) = torch.autograd.grad(loss, ones)
     return grad[:, 0] * math.sqrt(3.0)
@@ -59,17 +53,15 @@ def vote_step(state: GaussianState, cam: Camera, signed_mask: torch.Tensor,
 def projection_vote_step(state: GaussianState, cam: Camera, mask: torch.Tensor) -> torch.Tensor:
     """+1 / -1 for alive Gaussians whose projected centre (rounded half to
     even) falls inside / outside the mask, 0 off the image."""
-    p = state.params
     ones = torch.ones((state.capacity, 3), device=cam.device)
-    args = _gaussian_args(state)
+    args = raster_inputs(state.params, state.alive, ones)
     if args["scales"].shape[1] == 2:
         # a surfel state through the 3DGS preprocess, as in the JAX package,
         # whose out-of-range scale column reads the last one (only the
         # projected centres are used)
         args["scales"] = torch.cat([args["scales"], args["scales"][:, 1:]], dim=1)
     with torch.no_grad():
-        prep = preprocess_kernel(p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam,
-                                 colors_precomp=ones, **args)
+        prep = preprocess_kernel(cam=cam, **args)
         # f32 -> int32 as XLA converts: NaN to 0, saturating
         xy = torch.nan_to_num(torch.round(prep.xy), nan=0.0)
         xy = torch.clamp(xy, -2.0 ** 31, 2.0 ** 31 - 128).to(torch.int64)

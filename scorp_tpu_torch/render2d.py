@@ -19,7 +19,7 @@ from .core.plyio import GaussianData
 from .ops.raster import RasterConfig, rasterize_surfel
 from .ops.raster.surfel import surfel_maps
 from .render import default_raster_config
-from .train.state import GaussianState, from_gaussian_data
+from .train.state import GaussianState, from_gaussian_data, raster_inputs
 from .utils.trace import span
 
 
@@ -42,22 +42,10 @@ def render2d(
         if cfg is None:
             cfg = default_raster_config(gaussians.capacity)
         degree = gaussians.sh_degree if sh_degree is None else sh_degree
-        params = gaussians.params
-        kwargs = dict(
-            scales=torch.exp(params["scaling"]),
-            quats=params["rotation"],
-            scale_modifier=scaling_modifier,
-            alive=gaussians.alive,
-            cfg=cfg,
-        )
-        if override_color is not None:
-            kwargs["colors_precomp"] = override_color
-        else:
-            kwargs["shs"] = torch.cat([params["f_dc"], params["f_rest"]], dim=1)
-            kwargs["sh_degree"] = degree
         out = rasterize_surfel(
-            params["xyz"], torch.sigmoid(params["opacity"][:, 0]), cam,
-            torch.as_tensor(bg, dtype=torch.float32, device=dev), **kwargs,
+            cam=cam, bg=torch.as_tensor(bg, dtype=torch.float32, device=dev),
+            sh_degree=degree, scale_modifier=scaling_modifier, cfg=cfg,
+            **raster_inputs(gaussians.params, gaussians.alive, override_color),
         )
         with span("render.surfel_maps"):
             render_normal, surf_depth, surf_normal = surfel_maps(out, cam, depth_ratio)
@@ -71,5 +59,4 @@ def render2d(
             "render_depth": surf_depth,
             "surf_normal": surf_normal,
             "num_dropped_keys": out.num_dropped_keys,
-            "num_dropped_tail": out.num_dropped_tail,
         }

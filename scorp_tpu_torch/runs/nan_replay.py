@@ -35,7 +35,7 @@ from ..device import resolve_device
 from ..ops.raster import rasterize
 from ..render import tuned_raster_config
 from ..train import OptParams, adam_from_numpy, state_from_numpy, train_step
-from ..train.state import PARAM_KEYS
+from ..train.state import PARAM_KEYS, raster_inputs
 
 FORWARD_OUTPUTS = ("color", "depth_accum", "alpha")
 
@@ -87,13 +87,9 @@ def diagnose_inputs(state, cam) -> None:
 def forward_outputs(state, cam, bg, active_sh: int, cfg) -> dict:
     """The rasterizer's outputs for the step's inputs, as `train_step`
     calls it (without the gradient)."""
-    p = state.params
     with torch.no_grad():
-        out = rasterize(
-            p["xyz"], torch.sigmoid(p["opacity"][:, 0]), cam, bg,
-            shs=torch.cat([p["f_dc"], p["f_rest"]], dim=1), sh_degree=active_sh,
-            scales=torch.exp(p["scaling"]), quats=p["rotation"], alive=state.alive, cfg=cfg,
-        )
+        out = rasterize(cam=cam, bg=bg, sh_degree=active_sh, cfg=cfg,
+                        **raster_inputs(state.params, state.alive))
     return {k: getattr(out, k) for k in FORWARD_OUTPUTS}
 
 

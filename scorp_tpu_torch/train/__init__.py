@@ -11,6 +11,7 @@ from .state import (  # noqa: F401
     get_normal,
     grow_capacity,
     init_adam,
+    raster_inputs,
     rgb_to_sh_inv,
     round_capacity,
     state_from_numpy,

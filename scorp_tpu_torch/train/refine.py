@@ -18,7 +18,7 @@ import torch
 from ..core.camera import Camera
 from ..ops.losses import l1_loss, ssim
 from ..ops.raster import RasterConfig, rasterize
-from .state import AdamState, GaussianState, adam_update
+from .state import AdamState, GaussianState, adam_update, raster_inputs
 from .step import OptParams, compute_lrs
 
 FROZEN_REFINE = ("xyz", "rotation", "scaling", "opacity")
@@ -44,18 +44,8 @@ def refine_step(
     alive = state.alive
     cap = state.capacity
     params = {k: v.detach().requires_grad_(k not in frozen) for k, v in state.params.items()}
-    out = rasterize(
-        params["xyz"],
-        torch.sigmoid(params["opacity"][:, 0]),
-        cam,
-        bg,
-        shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1),
-        sh_degree=sh_degree,
-        scales=torch.exp(params["scaling"]),
-        quats=params["rotation"],
-        alive=alive,
-        cfg=cfg,
-    )
+    out = rasterize(cam=cam, bg=bg, sh_degree=sh_degree, cfg=cfg,
+                    **raster_inputs(params, alive))
     mask = gt_alpha.expand_as(gt_image)
     masked_image = out.color * mask
     masked_gt = gt_image * mask

@@ -59,6 +59,29 @@ class GaussianState(NamedTuple):
         return self.alive.sum()
 
 
+def raster_inputs(params: dict[str, torch.Tensor], alive: torch.Tensor,
+                  colors_precomp: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """The one place where stored (pre-activation) parameters become the
+    rasterizers' inputs, as keyword arguments of `rasterize` and
+    `rasterize_surfel`: `means3d` (xyz), `opacities` (sigmoid of the opacity
+    logit), `shs` (f_dc then f_rest) or the given `colors_precomp` in its
+    place, `scales` (exp of the log-scales), `quats` (the raw rotation) and
+    `alive`. `params` may be a step's leaf copies, so autograd records the
+    activations."""
+    inputs = dict(
+        means3d=params["xyz"],
+        opacities=torch.sigmoid(params["opacity"][:, 0]),
+        scales=torch.exp(params["scaling"]),
+        quats=params["rotation"],
+        alive=alive,
+    )
+    if colors_precomp is None:
+        inputs["shs"] = torch.cat([params["f_dc"], params["f_rest"]], dim=1)
+    else:
+        inputs["colors_precomp"] = colors_precomp
+    return inputs
+
+
 class AdamState(NamedTuple):
     m: dict[str, torch.Tensor]
     v: dict[str, torch.Tensor]

@@ -31,10 +31,10 @@ import torch
 
 from ..core.camera import Camera
 from ..ops.losses import l1_loss, ssim
-from ..ops.raster import RasterConfig, rasterize
+from ..ops.raster import RasterConfig, expected_depth, rasterize
 from .densify import accumulate_stats
 from ..utils.trace import span
-from .state import AdamState, GaussianState, adam_update, expon_lr
+from .state import AdamState, GaussianState, adam_update, expon_lr, raster_inputs
 
 
 @dataclass(frozen=True)
@@ -76,7 +76,6 @@ class StepMetrics(NamedTuple):
     depth_loss: torch.Tensor
     psnr: torch.Tensor
     num_dropped_keys: torch.Tensor
-    num_dropped_tail: torch.Tensor
     num_alive: torch.Tensor
 
 
@@ -147,19 +146,8 @@ def train_step(
     deltas = torch.zeros(cap, 2, device=dev, requires_grad=True)
 
     with span("step.forward"):
-        out = rasterize(
-            params["xyz"],
-            torch.sigmoid(params["opacity"][:, 0]),
-            cam,
-            bg,
-            shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1),
-            sh_degree=sh_degree,
-            scales=torch.exp(params["scaling"]),
-            quats=params["rotation"],
-            screen_deltas=deltas,
-            alive=alive,
-            cfg=cfg,
-        )
+        out = rasterize(cam=cam, bg=bg, sh_degree=sh_degree, screen_deltas=deltas, cfg=cfg,
+                        **raster_inputs(params, alive))
         with span("step.loss"):
             image = out.color
             ll1 = l1_loss(image, gt_image)
@@ -168,9 +156,7 @@ def train_step(
 
             depth_loss = torch.zeros((), device=dev)
             if iteration > opt.depth_from_iter:
-                one = torch.ones((), device=dev)
-                rend_depth = out.depth_accum / torch.where(out.alpha == 0.0, one, out.alpha)
-                rend_depth = torch.nan_to_num(rend_depth, nan=0.0, posinf=0.0, neginf=0.0)
+                rend_depth = expected_depth(out.depth_accum, out.alpha)
                 if has_depth_cam:
                     m = (gt_depth_cam > 0.3) & (gt_depth_cam < 7.0) & (rend_depth > 0.0)
                     depth_loss = depth_loss + opt.lambda_depth_sensor * _masked_mean(
@@ -220,7 +206,6 @@ def train_step(
             depth_loss=depth_loss.detach(),
             psnr=-10.0 * torch.log10(torch.clamp_min(mse, 1e-12)),
             num_dropped_keys=out.num_dropped_keys,
-            num_dropped_tail=out.num_dropped_tail,
             num_alive=alive.sum(),
         )
     return state, adam, metrics

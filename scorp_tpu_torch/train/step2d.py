@@ -28,7 +28,7 @@ from ..ops.raster import RasterConfig, rasterize_surfel
 from ..ops.raster.surfel import depth_to_normal, surfel_maps
 from ..utils.trace import span
 from .densify import accumulate_stats
-from .state import AdamState, GaussianState, adam_update, expon_lr
+from .state import AdamState, GaussianState, adam_update, expon_lr, raster_inputs
 from .step import (OptParams, StepMetrics, _masked_mean, _masked_minmax_normalize, compute_lrs,
                    isotropic)
 
@@ -75,19 +75,8 @@ def train_step_2d(
     deltas = torch.zeros(cap, 2, device=dev, requires_grad=True)
 
     with span("step.forward"):
-        out = rasterize_surfel(
-            params["xyz"],
-            torch.sigmoid(params["opacity"][:, 0]),
-            cam,
-            bg,
-            shs=torch.cat([params["f_dc"], params["f_rest"]], dim=1),
-            sh_degree=sh_degree,
-            scales=torch.exp(params["scaling"]),
-            quats=params["rotation"],
-            screen_deltas=deltas,
-            alive=alive,
-            cfg=cfg,
-        )
+        out = rasterize_surfel(cam=cam, bg=bg, sh_degree=sh_degree, screen_deltas=deltas,
+                               cfg=cfg, **raster_inputs(params, alive))
         image = out.color
         rend_normal, rend_depth, surf_normal = surfel_maps(out, cam, opt.depth_ratio)
         with span("step.loss"):
@@ -156,7 +145,6 @@ def train_step_2d(
             depth_loss=depth_loss.detach(),
             psnr=-10.0 * torch.log10(torch.clamp_min(mse, 1e-12)),
             num_dropped_keys=out.num_dropped_keys,
-            num_dropped_tail=out.num_dropped_tail,
             num_alive=alive.sum(),
         )
     return state, adam, metrics

@@ -32,7 +32,6 @@ from scorp_tpu_torch.ops.raster import (
     rasterize_surfel,
     route_stream,
     surfel_cull_ellipses,
-    surfel_prep_to_common,
     surfel_table,
 )
 from scorp_tpu_torch.ops.raster import common as raster_common
@@ -412,9 +411,8 @@ def test_sized_stream_gives_k4_the_full_capacity_images(dev):
     prep = preprocess_surfel(xyz, opa, cam, shs=shs, sh_degree=3, scales=scales[:, :2],
                              quats=quats)
     ell, circ = surfel_cull_ellipses(prep)
-    common = surfel_prep_to_common(prep)
-    x = expand_inputs(common, SIZED_W, SIZED_H, cfg.max_keys, True, ell, circ)
-    route = route_stream(common, SIZED_W, SIZED_H, cfg, geo=ell, geo2=circ)
+    x = expand_inputs(prep, SIZED_W, SIZED_H, cfg.max_keys, True, ell, circ)
+    route = route_stream(prep, SIZED_W, SIZED_H, cfg, geo=ell, geo2=circ)
     gid, start, count = _check_sized_route(x, route, cfg)
     table = surfel_table(prep)
     bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
@@ -498,15 +496,14 @@ def _surfel_route(n, seed, device, opaque=False, w=96, h=72):
     cam = look_at_camera([0, 0.3, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.7, w, h, device=device)
     prep = preprocess_surfel(xyz, opa, cam, colors_precomp=colors, scales=scales, quats=quats)
     ell, circ = surfel_cull_ellipses(prep)
-    common = surfel_prep_to_common(prep)
-    route = route_stream(common, w, h, RasterConfig(max_keys=1 << 16), geo=ell, geo2=circ)
-    return surfel_table(prep), route, (common, ell, circ, w, h)
+    route = route_stream(prep, w, h, RasterConfig(max_keys=1 << 16), geo=ell, geo2=circ)
+    return surfel_table(prep), route, (prep, ell, circ, w, h)
 
 
 @pytest.mark.parametrize("n,k_cap", [(1, 100), (300, 1 << 14), (3000, 1 << 16), (300, 777)])
 def test_expand_kernel_with_second_ellipse_matches_plain(dev, n, k_cap):
-    _, _, (common, ell, circ, w, h) = _surfel_route(n, n + k_cap, dev)
-    x = expand_inputs(common, w, h, k_cap, True, ell, circ)
+    _, _, (prep, ell, circ, w, h) = _surfel_route(n, n + k_cap, dev)
+    x = expand_inputs(prep, w, h, k_cap, True, ell, circ)
     keys = _check_expand_both_widths(x)
     kept = int((keys != x.num_tiles << x.bits_g).sum())
     # the union keeps at least what the conic alone keeps

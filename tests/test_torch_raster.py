@@ -95,8 +95,8 @@ def test_k1_plain_without_cull_equals_golden_tile_sort(preps, k_cap):
     assert (st[live:] == NUM_TILES).all()
     dropped = max(int(total) - k_cap, 0)
     assert (dropped > 0) == (k_cap == 256)
-    bins = tc.bin_stream(pt, W, H, RasterConfig(max_keys=k_cap))
-    assert int(bins.num_dropped_keys) >= dropped
+    route = tc.route_stream(pt, W, H, RasterConfig(max_keys=k_cap))
+    assert int(route.num_dropped_keys) >= dropped
 
 
 def _live_pairs(tile, g):

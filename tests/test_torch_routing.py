@@ -6,7 +6,8 @@ int32 edge (262,145 rows at 1600x1066); the key buffer's length rule
 (`key_slots`) on its own and through the route, at bucket edges, with
 nothing on screen and past the capacity; and the PyTorch mirror of K1's
 per-block search (`block_search_plain`) against `searchsorted`, on the test
-scenes and on hand-made prefix sums. All on the CPU."""
+scenes and on hand-made prefix sums; and both rasterizers' eval and grad
+paths, which share the routing, against each other. All on the CPU."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ import torch
 
 from scorp_tpu.ops.raster.pallas_expand import packable
 from scorp_tpu_torch.core.camera import look_at_camera
-from scorp_tpu_torch.ops.raster import RasterConfig, preprocess_plain
+from scorp_tpu_torch.ops.raster import RasterConfig, preprocess_plain, rasterize, rasterize_surfel
 from scorp_tpu_torch.ops.raster import common as tc
 from scorp_tpu_torch.ops.raster import surfel as ts
 from scorp_tpu_torch.ops.raster.expand import (
@@ -33,6 +34,8 @@ from tests.test_torch_raster import H, W, both_preps, port_camera, t
 from tests.test_torch_surfel import scene as surfel_scene
 
 torch.set_num_threads(1)
+
+RASTER_BG = np.array([0.2, 0.3, 0.4], np.float32)
 
 
 # --- (a) the width rule ------------------------------------------------------
@@ -78,7 +81,7 @@ def _case(kind):
         prep = ts.preprocess_surfel(t(xyz), t(opa), port_camera(), colors_precomp=t(colors),
                                     scales=t(scales), quats=t(quats))
         ell, circ = ts.surfel_cull_ellipses(prep)
-        return ts.surfel_prep_to_common(prep), ell, circ, True
+        return prep, ell, circ, True
     _, pt = both_preps(make_scene(n=200, seed=1))
     return pt, None, None, kind == "cull"
 
@@ -340,3 +343,45 @@ def test_block_search_mirror_on_hand_made_starts(kind):
         assert limit % BLOCK_SLOTS != 0 and limit < k_cap
     if kind == "zero_runs":  # gaussians without slots between the owners
         assert int((g_hi - g_lo).max()) > BLOCK_SLOTS
+
+
+# --- (e) the rasterizers' two paths over the shared routing ------------------
+
+def _raster_call(kind):
+    """(rasterizer, inputs, kwargs) of the 3DGS test scene (SH 3) or of the
+    surfel one (precomputed colours), with a few rows dead."""
+    if kind == "surfel":
+        xyz, scales, quats, opa, colors = surfel_scene(n=60, seed=13)
+        inputs = dict(means3d=t(xyz), opacities=t(opa), colors_precomp=t(colors),
+                      scales=t(scales), quats=t(quats))
+        fn, n, kw = rasterize_surfel, 60, {}
+    else:
+        xyz, scales, quats, opa, shs = make_scene(n=200, seed=1)
+        inputs = dict(means3d=t(xyz), opacities=t(opa), shs=t(shs), scales=t(scales),
+                      quats=t(quats))
+        fn, n, kw = rasterize, 200, {"sh_degree": 3}
+    alive = torch.ones(n, dtype=torch.bool)
+    alive[::7] = False
+    return fn, inputs, dict(kw, alive=alive, cam=port_camera(), bg=t(RASTER_BG),
+                            cfg=RasterConfig(max_keys=1 << 14))
+
+
+@pytest.mark.parametrize("kind", ["3dgs", "surfel"])
+def test_eval_and_grad_paths_give_equal_maps(kind):
+    """Both rasterizers run one sequence: preprocess and table, the routing,
+    then the eval compositor (K2 / K4) or the autograd Function (K2 with
+    n_contrib / K5). On one scene the two paths give the same maps (colour,
+    alpha and depth; the surfels' normal, median depth and distortion too),
+    radii and dropped count, and only the grad path records a graph."""
+    fn, inputs, kw = _raster_call(kind)
+    ev = fn(**inputs, **kw)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in inputs.items()}
+    gr = fn(**leaves, **kw)
+    assert ev.color.grad_fn is None and gr.color.grad_fn is not None
+    names = ["color", "alpha", "depth_accum", "radii", "num_dropped_keys"]
+    if kind == "surfel":
+        names += ["normal", "depth_median", "distortion"]
+    for name in names:
+        torch.testing.assert_close(getattr(gr, name).detach(), getattr(ev, name), rtol=0,
+                                   atol=0, msg=name)
+    assert float(ev.alpha.mean()) > 0.05

@@ -89,8 +89,7 @@ def test_preprocess_adj_and_cull_ellipses_match_jax(extra):
     torch.testing.assert_close(port[1], ref[1], rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(port[0][:, 2:5], ref[0][:, 2:5], rtol=1e-5, atol=1e-12)
     assert torch.equal(port[0][:, 5] == 1e30, ref[0][:, 5] == 1e30)
-    common = ts.surfel_prep_to_common(pt)
-    keys = [expand_keys_plain(expand_inputs(common, W, H, 1 << 14, True, *e))[0] for e in (port, ref)]
+    keys = [expand_keys_plain(expand_inputs(pt, W, H, 1 << 14, True, *e))[0] for e in (port, ref)]
     kept = int((keys[1] != keys[1].max()).sum())
     assert kept > 100 and int((keys[0] != keys[1]).sum()) <= 0.005 * kept
 
@@ -170,7 +169,7 @@ def _stream(arrays, dtype=torch.float32):
     prep = ts.preprocess_surfel(t(xyz), t(opa), port_camera(), colors_precomp=t(colors),
                                 scales=t(scales), quats=t(quats))
     ell, circ = ts.surfel_cull_ellipses(prep)
-    route = tc.route_stream(ts.surfel_prep_to_common(prep), W, H, TCFG, geo=ell, geo2=circ)
+    route = tc.route_stream(prep, W, H, TCFG, geo=ell, geo2=circ)
     return ts.surfel_table(prep).to(dtype), route
 
 
@@ -345,11 +344,10 @@ def test_union_cull_drops_no_contributing_key():
     colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     prep = ts.preprocess_surfel(t(xyz), t(opa), port_camera(jcam), colors_precomp=t(colors),
                                 scales=t(scales), quats=t(quats))
-    common = ts.surfel_prep_to_common(prep)
     ell, circ = ts.surfel_cull_ellipses(prep)
     k_cap = 1 << 15
-    x0 = expand_inputs(common, w, h, k_cap, cull=False)
-    x1 = expand_inputs(common, w, h, k_cap, cull=True, geo=ell, geo2=circ)
+    x0 = expand_inputs(prep, w, h, k_cap, cull=False)
+    x1 = expand_inputs(prep, w, h, k_cap, cull=True, geo=ell, geo2=circ)
     assert int(x0.total) <= k_cap
     keys0, kept0 = expand_keys_plain(x0)
     keys1, kept1 = expand_keys_plain(x1)

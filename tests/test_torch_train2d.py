@@ -56,7 +56,9 @@ def test_render2d_matches_jax():
     st = _jax_state2d()
     ref = jax.device_get(j_render2d(CAM, st, BG, cfg=JCFG, depth_ratio=0.5))
     got = render2d(port_camera(), _port(st), t(BG), cfg=TCFG, depth_ratio=0.5)
-    assert sorted(got) == sorted(ref)
+    # every key of the JAX dict but `num_dropped_tail`, what its XLA path's
+    # per-tile lists cut: the port has no such lists
+    assert sorted(got) == sorted(set(ref) - {"num_dropped_tail"})
     assert int(got["num_dropped_keys"]) == int(ref["num_dropped_keys"]) == 0
     assert float(got["render_alpha"].mean()) > 0.2
     for name in ("radii", "visibility_filter"):
