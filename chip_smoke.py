@@ -76,7 +76,11 @@ Phases, in order (any failure exits non-zero):
      (their first two scales, bench.py:293-300) written as a PLY and
      rendered through `scorp_tpu_torch.apps.render_2dgs.main` on cuda
      (PNGs, zero dropped keys, a non-black frame, K1's and K4's launch
-     counters rose); K1 with its second ellipse and K4 against their plain
+     counters rose, the fused surfel preprocess's once per frame); the
+     fused surfel preprocess against the plain stages on render2d's inputs
+     at full width (every field of `SurfelFrame` bit for bit) with its
+     times beside the plain stages' and its bound; K1 with its second
+     ellipse and K4 against their plain
      versions at 50k / 800x600 and at full width (every channel within max
      5e-3 and mean 1e-5), and the sort and route checks of phase 4 on the
      full-width stream; K4 on the uncut stream (every rect key) against
@@ -247,11 +251,13 @@ Phases, in order (any failure exits non-zero):
      step on the card and on the CPU's plain versions: the loss within
      1e-5 relative, every parameter and moment column within 1e-4 x its
      largest (K3's atomics rule); each path's time and a snapshot's bytes.
-Every phase holds the fused preprocess's launches to its tally with
-K1-K6's: one per 3DGS render without grad, none in a training step.
-The kernels are printed as one {"kernels": [...]} JSON line: the fused
-preprocess (P) with its launches in phase 2's eval run, phase 6's
-evaluations and phases 12-16, and its times from phase 4; K1-K3 with
+Every phase holds the fused preprocesses' launches to their tally with
+K1-K6's: one per 3DGS (P) or 2DGS (S) render without grad, none in a
+training step. The kernels are printed as one {"kernels": [...]} JSON
+line: the fused preprocess (P) with its launches in phase 2's eval run,
+phase 6's evaluations and phases 12-16, and its times from phase 4; the
+fused surfel preprocess (S) with its launches in phase 8's eval run, phase
+10's evaluations and phases 13-15, and its times from phase 8; K1-K3 with
 their launches in the 3DGS training run of phase 6 (K1/K2's in the eval run
 of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
 2DGS eval run of phase 8, K5 and K6 with theirs in the 2DGS training run of
@@ -1098,10 +1104,11 @@ def phase_full_kernels(args, device, scene_dir, model_dir):
     }
 
 
-def check_preprocess(got, ref, label: str) -> float:
-    """The fused preprocess's outputs against its plain version's: every
-    field of `Preprocessed` (radii, rect and valid too) equal bit for bit,
-    NaN where NaN. Returns the largest |diff| of the float fields."""
+def check_preprocess(got, ref, label: str, what: str = "fused preprocess") -> float:
+    """A fused preprocess's outputs against its plain version's: every
+    field (of `Preprocessed`, or `SurfelFrame` for the surfel one; radii,
+    rect and valid too) equal bit for bit, NaN where NaN. Returns the
+    largest |diff| of the float fields."""
     import torch
 
     err = 0.0
@@ -1113,7 +1120,7 @@ def check_preprocess(got, ref, label: str) -> float:
         if a.dtype == torch.float32:
             a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
         same = a.shape == b.shape and bool(torch.equal(a, b))
-        check(same, f"fused preprocess {label}: {name} bit-equal to the plain version's"
+        check(same, f"{what} {label}: {name} bit-equal to the plain version's"
               + ("" if same or a.shape != b.shape else f" ({int((a != b).sum())} differ)"))
     return err
 
@@ -1663,13 +1670,15 @@ def phase_surfel_eval(args, device, scene_dir):
     from scorp_tpu_torch.ops.raster import RasterConfig, grid_dims
     from scorp_tpu_torch.ops.raster.common import _tile_bounds, sorted_expansion
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.fused_surfel_preprocess import preprocess_surfel_kernel
     from scorp_tpu_torch.ops.raster.sort import sort_keys
+    from scorp_tpu_torch.ops.raster.surfel import surfel_frame_plain
     from scorp_tpu_torch.ops.raster.surfel_composite import (
         surfel_composite, surfel_composite_plain, surfel_composite_train,
     )
     from scorp_tpu_torch.render import default_raster_config
     from scorp_tpu_torch.render2d import render2d
-    from scorp_tpu_torch.train import from_gaussian_data
+    from scorp_tpu_torch.train import from_gaussian_data, raster_inputs
 
     model_dir = os.path.join(WORK, "model2d")
     g = surfel_gaussians(args.n, args.seed)
@@ -1677,11 +1686,13 @@ def phase_surfel_eval(args, device, scene_dir):
     argv = ["-s", scene_dir, "-m", model_dir, "--eval", "--split_yml_name", "split.yml",
             "--not_render_baseline", "--device", str(device)]
     expand_keys.launches = sort_keys.launches = surfel_composite.launches = 0
+    preprocess_surfel_kernel.launches = 0
     t0 = time.perf_counter()
     results = render_2dgs.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"expand": expand_keys.launches, "sort": sort_keys.launches,
+    launches = {"surfel_preprocess": preprocess_surfel_kernel.launches,
+                "expand": expand_keys.launches, "sort": sort_keys.launches,
                 "surfel_composite": surfel_composite.launches}
     records = results[os.path.join(model_dir, "rendered_refined")]
     for r in records:
@@ -1702,6 +1713,8 @@ def phase_surfel_eval(args, device, scene_dir):
     check(launches["expand"] > 0 and launches["surfel_composite"] > 0,
           "K1 and K4 launched on the 2DGS eval path")
     check(launches["sort"] == launches["expand"], "the keys-only sort ran once per expansion")
+    check(launches["surfel_preprocess"] == launches["surfel_composite"],
+          "the fused surfel preprocess ran once per 2DGS eval frame")
 
     bg = torch.tensor([0.2, 0.3, 0.4], device=device)
     # 50k / 800x600: K1 with both ellipses and K4 against their plain versions
@@ -1734,6 +1747,21 @@ def phase_surfel_eval(args, device, scene_dir):
     state = from_gaussian_data(g, device=device)
     cfg = default_raster_config(state.capacity)
     cam = device_camera(w, h, device)
+    # the fused surfel preprocess against the plain stages on render2d's inputs
+    s_kw = dict(cam=cam, sh_degree=3, **raster_inputs(state.params, state.alive))
+    s_err = check_preprocess(preprocess_surfel_kernel(**s_kw), surfel_frame_plain(**s_kw),
+                             "full width", "fused surfel preprocess")
+    s_ms = kernel_ms(lambda: preprocess_surfel_kernel(**s_kw), "::surfel_preprocess_kernel<")
+    s_call_ms = cuda_ms(lambda: preprocess_surfel_kernel(**s_kw), 20)
+    s_plain_ms = cuda_ms(lambda: surfel_frame_plain(**s_kw), 5)
+    # bytes: per row the inputs read (xyz 12, opacity 4, scales 8, quats 16,
+    # 16 SH bands 192, alive 1) and the outputs written (table 84, the two
+    # ellipses 48, rect 16, radii 4, depth 4, valid 1), and the camera's 31
+    # floats; its f32 and f64 operations take a few microseconds
+    s_rows = state.capacity
+    s_bound = (s_rows * (233 + 157) + 31 * 4) / HBM_BYTES_PER_S
+    print(f"  fused surfel preprocess: {s_ms:.4f} ms ({s_call_ms:.4f} per call), plain stages "
+          f"{s_plain_ms:.3f} ms, bound {s_bound * 1e3:.4f} ms (bytes, {s_rows} rows)")
     _, x, route, _, data = surfel_stream_of_state(state, cam, w, h, cfg)
     k1_err = max(k1_err, check_expand(x, "surfel full width"))
     check_route(x, route, cfg, "full-width 2DGS eval stream")
@@ -1770,6 +1798,9 @@ def phase_surfel_eval(args, device, scene_dir):
         print("  device busy per frame: not measured (the trace held no CUDA events)")
     return launches, {"k4": dict(ms=k4_ms, ms_per_call=k4_call_ms, plain_ms=k4_plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by, err=k4_err),
+                      "surfel_preprocess": dict(ms=s_ms, ms_per_call=s_call_ms,
+                                                plain_ms=s_plain_ms, bound_ms=s_bound * 1e3,
+                                                bound_by="bytes", err=s_err, rows=s_rows),
                       "k1_err": k1_err, "frame_ms": frame_ms}
 
 
@@ -1829,6 +1860,7 @@ def phase_surfel_train_app(args, device, scene_dir):
     from scorp_tpu_torch.apps import train_2dgs
     from scorp_tpu_torch.core.plyio import load_gaussian_ply
     from scorp_tpu_torch.ops.raster.expand import expand_keys
+    from scorp_tpu_torch.ops.raster.fused_surfel_preprocess import preprocess_surfel_kernel
     from scorp_tpu_torch.ops.raster.sort import sort_keys
     from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward
     from scorp_tpu_torch.ops.raster.surfel_composite import (
@@ -1846,12 +1878,14 @@ def phase_surfel_train_app(args, device, scene_dir):
             "--opacity_cull", "0.005", "--device", str(device)]
     expand_keys.launches = sort_keys.launches = surfel_composite.launches = 0
     surfel_composite_train.launches = surfel_backward.launches = 0
+    preprocess_surfel_kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, state, adam, log = train_2dgs.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"expand": expand_keys.launches, "sort": sort_keys.launches,
+    launches = {"surfel_preprocess": preprocess_surfel_kernel.launches,
+                "expand": expand_keys.launches, "sort": sort_keys.launches,
                 "surfel_composite": surfel_composite.launches,
                 "surfel_composite_train": surfel_composite_train.launches,
                 "surfel_backward": surfel_backward.launches}
@@ -1868,6 +1902,8 @@ def phase_surfel_train_app(args, device, scene_dir):
           and launches["surfel_backward"] >= iters and launches["surfel_composite"] > 0,
           "K1, K5 and K6 launched once per step, K4 in the evaluations")
     check(launches["sort"] == launches["expand"], "the keys-only sort ran once per expansion")
+    check(launches["surfel_preprocess"] == launches["surfel_composite"],
+          "the fused surfel preprocess ran once per evaluation frame and in no step")
     check(len(losses) == iters and all(np.isfinite(losses)), "every step's loss is finite")
     for it, res in log["eval"]:
         print(f"  eval after iteration {it}: " + ", ".join(
@@ -2008,8 +2044,8 @@ ALIGN_ROUNDS = 4   # render-match-solve rounds of phase 12's align (the app's de
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel of the rasterizers (the fused preprocess, K1, the
-    key sort, K2, K3, and the surfel compositors K4-K6) to its plain PyTorch
+    """Route every kernel of the rasterizers (both fused preprocesses, K1,
+    the key sort, K2, K3, and the surfel compositors K4-K6) to its plain PyTorch
     version, on whatever device the tensors lie, so that a whole entry point
     can be held against itself through the kernels. The plain versions count
     no launches: the block fails if a kernel was launched inside it, as it
@@ -2027,7 +2063,7 @@ def plain_kernels():
     sb = mods["scorp_tpu_torch.ops.raster.surfel_backward"]
     m3 = mods["scorp_tpu_torch.pipeline.mask3d"]
     names = ("composite", "composite_backward", "surfel_composite", "surfel_composite_train",
-             "surfel_backward", "preprocess_kernel")
+             "surfel_backward", "preprocess_kernel", "preprocess_surfel_kernel")
     saved = tuple(getattr(raster, k) for k in names) + (ex.expand_keys, so.sort_keys,
                                                         m3.preprocess_kernel)
     raster.composite = co.composite_plain
@@ -2036,6 +2072,7 @@ def plain_kernels():
     raster.surfel_composite_train = functools.partial(sc.surfel_composite_plain, train=True)
     raster.surfel_backward = sb.surfel_backward_plain
     raster.preprocess_kernel = m3.preprocess_kernel = raster.preprocess_plain
+    raster.preprocess_surfel_kernel = raster.surfel_frame_plain
     ex.expand_keys = ex.expand_keys_plain
     so.sort_keys = lambda keys, end_bit: so.sort_keys_plain(keys)
     try:
@@ -2052,13 +2089,15 @@ def _wrappers() -> dict:
     from scorp_tpu_torch.ops.raster.composite import composite
     from scorp_tpu_torch.ops.raster.expand import expand_keys
     from scorp_tpu_torch.ops.raster.fused_preprocess import preprocess_kernel
+    from scorp_tpu_torch.ops.raster.fused_surfel_preprocess import preprocess_surfel_kernel
     from scorp_tpu_torch.ops.raster.sort import sort_keys
     from scorp_tpu_torch.ops.raster.surfel_backward import surfel_backward
     from scorp_tpu_torch.ops.raster.surfel_composite import (
         surfel_composite, surfel_composite_train,
     )
 
-    return {"preprocess": preprocess_kernel, "expand": expand_keys, "sort": sort_keys,
+    return {"preprocess": preprocess_kernel, "surfel_preprocess": preprocess_surfel_kernel,
+            "expand": expand_keys, "sort": sort_keys,
             "composite": composite, "backward": composite_backward,
             "surfel_composite": surfel_composite,
             "surfel_composite_train": surfel_composite_train,
@@ -2066,8 +2105,8 @@ def _wrappers() -> dict:
 
 
 def kernel_launches() -> dict:
-    """Every kernel wrapper's launch count (the fused preprocess, K1, the
-    sort, K2-K6)."""
+    """Every kernel wrapper's launch count (both fused preprocesses, K1,
+    the sort, K2-K6)."""
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
@@ -2940,7 +2979,8 @@ def phase_scorp2d(args, device):
                                                   hc.image_name + ".png")).any())
                  for hc in scene.get_train_cameras())
     check(ns == n_seen and npx > 0 and launches["align"] == launches_of(
-        preprocess=npx, expand=ns + npx, sort=ns + npx, surfel_composite=ns, composite=npx),
+        preprocess=npx, surfel_preprocess=ns, expand=ns + npx, sort=ns + npx,
+        surfel_composite=ns, composite=npx),
         f"one K1, sort and K4 per scene-object render (one per train view that sees the "
         f"object: {n_seen}), one fused preprocess, K1, sort and K2 per proxy render ({npx})")
     solved = [it for it, log in sorted(rounds.items())
@@ -3027,9 +3067,9 @@ def phase_scorp2d(args, device):
     mesh_s = time.perf_counter() - t0
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     launches["mesh"] = kernel_launches()
-    check(launches["mesh"] == launches_of(expand=n_train, sort=n_train,
-                                          surfel_composite=n_train),
-          f"one K1, sort and K4 per training view ({n_train})")
+    check(launches["mesh"] == launches_of(surfel_preprocess=n_train, expand=n_train,
+                                          sort=n_train, surfel_composite=n_train),
+          f"one fused surfel preprocess, K1, sort and K4 per training view ({n_train})")
     check(grid["res"] == 256, f"a 256^3 grid ({grid['res'] ** 3} voxels)")
     check(grid["weights_equal"], "the card's TSDF weights equal the CPU fusion's")
     check(grid["tsdf_err"] <= 1e-5 and grid["color_err"] <= 1e-5,
@@ -3047,8 +3087,8 @@ def phase_scorp2d(args, device):
           f"observed voxels {grid['observed']:.4f}; launches {launches['mesh']}")
     wall = time.perf_counter() - t_phase
     print(f"  phase wall {wall:.2f} s")
-    keys = ("preprocess", "expand", "sort", "composite", "surfel_composite",
-            "surfel_composite_train", "surfel_backward")
+    keys = ("preprocess", "surfel_preprocess", "expand", "sort", "composite",
+            "surfel_composite", "surfel_composite_train", "surfel_backward")
     scorp2d = {k: launches["segmentation"][k] + launches["align"][k] for k in keys}
     return scorp2d, launches["mesh"], {
         "launches_by_stage": launches, "vote_ms": vote_ms, "vote_err": vote_errs,
@@ -3548,11 +3588,11 @@ def phase_dp(args, device):
             alphas.append(float(o["render_alpha"].mean()))
             save_img_u8(o["render"].cpu().numpy(), os.path.join(frame_dir, f"{i:03d}.png"))
         launches[tag] = kernel_launches()
-        pre = ORBIT_FRAMES if kernel == "composite" else 0  # the 3DGS path's preprocess
-        check(launches[tag] == launches_of(preprocess=pre, expand=ORBIT_FRAMES,
-                                           sort=ORBIT_FRAMES, **{kernel: ORBIT_FRAMES}),
-              f"{tag}: one K1, sort and "
-              f"{'K4' if kernel != 'composite' else 'fused preprocess and K2'} per frame")
+        pre, what = (("preprocess", "fused preprocess and K2") if kernel == "composite"
+                     else ("surfel_preprocess", "fused surfel preprocess and K4"))
+        check(launches[tag] == launches_of(expand=ORBIT_FRAMES, sort=ORBIT_FRAMES,
+                                           **{pre: ORBIT_FRAMES, kernel: ORBIT_FRAMES}),
+              f"{tag}: one K1, sort, {what} per frame")
         check(min(alphas) > 0, f"{tag}: every frame covers the scene (mean alpha "
               f"{min(alphas):.4f} .. {max(alphas):.4f})")
         with Image.open(os.path.join(frame_dir, "000.png")) as im:
@@ -3972,10 +4012,11 @@ def phase_long_training(args, device):
     wall2d = time.perf_counter() - t0
     launches["2dgs"] = kernel_launches()
     check(launches["2dgs"] == launches_of(
-        expand=iters2d + n_eval, sort=iters2d + n_eval, surfel_composite=n_eval,
-        surfel_composite_train=iters2d, surfel_backward=iters2d),
+        surfel_preprocess=n_eval, expand=iters2d + n_eval, sort=iters2d + n_eval,
+        surfel_composite=n_eval, surfel_composite_train=iters2d, surfel_backward=iters2d),
           f"2DGS: K1 and the sort once per step and evaluation render ({iters2d} + {n_eval}), "
-          f"K5 and K6 once per step, K4 once per evaluation render: {launches['2dgs']}")
+          f"K5 and K6 once per step, the fused surfel preprocess and K4 once per evaluation "
+          f"render: {launches['2dgs']}")
     check_long_run(log, state, adam, iters2d, "2DGS")
     (_, res2d), = log["eval"]
     print(f"  2DGS: wall {wall2d:.2f} s, {1e3 * wall2d / iters2d:.3f} ms per iteration; peak "
@@ -4258,6 +4299,8 @@ def main(argv=None) -> int:
     from scorp_tpu_torch.ops.raster.expand import SOURCE as K1_SOURCE
     from scorp_tpu_torch.ops.raster.fused_preprocess import REPLACES as P_REPLACES
     from scorp_tpu_torch.ops.raster.fused_preprocess import SOURCE as P_SOURCE
+    from scorp_tpu_torch.ops.raster.fused_surfel_preprocess import REPLACES as S_REPLACES
+    from scorp_tpu_torch.ops.raster.fused_surfel_preprocess import SOURCE as S_SOURCE
     from scorp_tpu_torch.ops.raster.surfel_backward import REPLACES as K6_REPLACES
     from scorp_tpu_torch.ops.raster.surfel_backward import SOURCE as K6_SOURCE
     from scorp_tpu_torch.ops.raster.surfel_composite import REPLACES as K4_REPLACES
@@ -4405,6 +4448,17 @@ def main(argv=None) -> int:
          "launches_dp": dp_launches["preprocess"],
          "launches_dp_checks": dp["check_launches"]["preprocess"],
          "launches_long": long("preprocess"), "launches_nan": nan_stages("preprocess")},
+        {"name": "S fused surfel preprocess", "route": "cuda", "source": S_SOURCE,
+         "replaces": S_REPLACES, "launches": launches2d["surfel_preprocess"],
+         "launches_2dgs_train_evals": train2d_launches["surfel_preprocess"],
+         "max_abs_err": eval2d["surfel_preprocess"]["err"],
+         **timed(eval2d["surfel_preprocess"]), "library_ms": None,
+         "rows": eval2d["surfel_preprocess"]["rows"],
+         "launches_scorp2d": scorp2d_launches["surfel_preprocess"],
+         "launches_mesh": mesh_launches["surfel_preprocess"],
+         "launches_dp": dp_launches["surfel_preprocess"],
+         "launches_dp_checks": dp["check_launches"]["surfel_preprocess"],
+         "launches_long": long("surfel_preprocess")},
         {"name": "K1 expand_keys", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": train_launches["expand"],
          "launches_eval": launches["expand"], "launches_2dgs": train2d_launches["expand"],

@@ -52,47 +52,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "preprocess_common.cuh"
+
 namespace {
 
+using namespace prep;
+
 constexpr int kThreads = 128;
-constexpr int kTile = 16;
-
-// A Python float as PyTorch applies it to a float32 tensor: the double,
-// rounded to float.
-__host__ __device__ constexpr float f32(double v) { return static_cast<float>(v); }
-
-// core/sh.py's constants
-constexpr float kC0 = f32(0.28209479177387814);
-constexpr float kC1 = f32(0.4886025119029199);
-constexpr float kC2_0 = f32(1.0925484305920792), kC2_1 = f32(-1.0925484305920792),
-                kC2_2 = f32(0.31539156525252005), kC2_3 = f32(-1.0925484305920792),
-                kC2_4 = f32(0.5462742152960396);
-constexpr float kC3_0 = f32(-0.5900435899266435), kC3_1 = f32(2.890611442640554),
-                kC3_2 = f32(-0.4570457994644658), kC3_3 = f32(0.3731763325901154),
-                kC3_4 = f32(-0.4570457994644658), kC3_5 = f32(1.445305721320277),
-                kC3_6 = f32(-0.5900435899266435);
-
-// torch.clamp_min, torch.clamp and torch.minimum on CUDA: NaN propagates.
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  if (isnan(v)) return v;
-  if (isnan(lo)) return lo;
-  if (isnan(hi)) return hi;
-  return fminf(fmaxf(v, lo), hi);
-}
-
-__device__ __forceinline__ float minimum(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
-}
-
-// common.py:_tile_index: clip(int32(v), 0, hi), truncating toward zero
-__device__ __forceinline__ int tile_index(float v, int hi) {
-  const int i = __float2int_rz(clamp(v, -1.0f, f32(hi + 1.0)));
-  return min(max(i, 0), hi);
-}
 
 // kDeg: the SH degree 0-3 of the colour, or -1 where the caller gives it.
 template <int kDeg>
@@ -108,19 +74,12 @@ __global__ void __launch_bounds__(kThreads) preprocess_kernel(
     float* __restrict__ depth_out, float* __restrict__ conic_out,
     float* __restrict__ color_out, int* __restrict__ radii_out, int4* __restrict__ rect_out,
     unsigned char* __restrict__ valid_out) {
-  constexpr int kRow = kDeg >= 0 ? (kDeg + 1) * (kDeg + 1) * 3 : 0;  // floats read a row
-  constexpr int kPad = kRow | 1;  // odd stride in shared memory
+  constexpr int kPad = sh_row_stride<kDeg>();
   __shared__ float sh_s[kThreads * kPad];
   const int g0 = blockIdx.x * kThreads;
   const int g = g0 + threadIdx.x;
   if constexpr (kDeg >= 0) {
-    const int rows = min(kThreads, n - g0);
-    const int lane = threadIdx.x & 31;
-#pragma unroll 4
-    for (int r = threadIdx.x >> 5; r < rows; r += kThreads / 32) {
-      const float* src = shs + static_cast<size_t>(g0 + r) * sh_stride * 3;
-      for (int j = lane; j < kRow; j += 32) sh_s[r * kPad + j] = __ldg(src + j);
-    }
+    stage_sh<kDeg, kThreads>(shs, sh_stride, n, g0, sh_s);
     __syncthreads();
   }
   if (g >= n) return;
@@ -237,7 +196,6 @@ __global__ void __launch_bounds__(kThreads) preprocess_kernel(
   const float rx = keep ? minimum(radius_f, sqrtf(t2 * clamp_min(c00, 0.0f))) : 0.0f;
   const float ry = keep ? minimum(radius_f, sqrtf(t2 * clamp_min(c11, 0.0f))) : 0.0f;
   const int tiles_x = (width + kTile - 1) / kTile, tiles_y = (height + kTile - 1) / kTile;
-  constexpr float kInvTile = 1.0f / kTile;  // PyTorch divides by a scalar as x * (1 / s)
   // (v + TILE - 1) is ((v + 16) - 1) in the plain version's order
   const int x0 = tile_index((pix_x - rx) * kInvTile, tiles_x);
   const int y0 = tile_index((pix_y - ry) * kInvTile, tiles_y);
@@ -262,32 +220,11 @@ __global__ void __launch_bounds__(kThreads) preprocess_kernel(
 
   // --- colour: core/sh.py:eval_sh, then the clamp at 0 ---
   if constexpr (kDeg >= 0) {
-    float dx = px - campos[0], dy = py - campos[1], dz = pz - campos[2];
-    const float inv = rsqrtf((dx * dx + dz * dz) + dy * dy + f32(1e-20));
-    const float x = dx * inv, y = dy * inv, z = dz * inv;
+    float x, y, z;
+    view_dir(px, py, pz, campos, x, y, z);
     const float* sh = sh_s + threadIdx.x * kPad;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float r = kC0 * sh[c];
-      if constexpr (kDeg > 0) {
-        r = r - kC1 * y * sh[3 + c] + kC1 * z * sh[6 + c] - kC1 * x * sh[9 + c];
-      }
-      if constexpr (kDeg > 1) {
-        const float xx = x * x, yy = y * y, zz = z * z;
-        const float xy = x * y, yz = y * z, xz = x * z;
-        r = r + kC2_0 * xy * sh[12 + c] + kC2_1 * yz * sh[15 + c] +
-            kC2_2 * (2.0f * zz - xx - yy) * sh[18 + c] + kC2_3 * xz * sh[21 + c] +
-            kC2_4 * (xx - yy) * sh[24 + c];
-        if constexpr (kDeg > 2) {
-          r = r + kC3_0 * y * (3.0f * xx - yy) * sh[27 + c] + kC3_1 * xy * z * sh[30 + c] +
-              kC3_2 * y * (4.0f * zz - xx - yy) * sh[33 + c] +
-              kC3_3 * z * (2.0f * zz - 3.0f * xx - 3.0f * yy) * sh[36 + c] +
-              kC3_4 * x * (4.0f * zz - xx - yy) * sh[39 + c] +
-              kC3_5 * z * (xx - yy) * sh[42 + c] + kC3_6 * x * (xx - 3.0f * yy) * sh[45 + c];
-        }
-      }
-      color_out[gc + c] = clamp_min(r + 0.5f, 0.0f);
-    }
+    for (int c = 0; c < 3; ++c) color_out[gc + c] = sh_color<kDeg>(sh, c, x, y, z);
   }
 }
 

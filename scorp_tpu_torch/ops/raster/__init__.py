@@ -8,11 +8,15 @@ run one sequence:
 1. preprocess and the per-primitive table. 3DGS: the fused kernel
    (`preprocess_kernel`) on the eval path, its plain version
    (`preprocess_plain`), which autograd records, on the grad path; the
-   [N, 10] table (`stream_table`). Surfels: `preprocess_surfel` and the
-   [N, 21] table (`surfel_table`), which autograd records on the grad path;
+   [N, 10] table (`stream_table`). Surfels: on the eval path the fused
+   kernel (`preprocess_surfel_kernel`), which also writes the [N, 21]
+   table and K1's two cull ellipses in its one launch; on the grad path
+   the plain stages, `preprocess_surfel` and the [N, 21] table
+   (`surfel_table`), which autograd records, then the two ellipses
+   (`surfel_cull_ellipses`) under no_grad;
 2. the routing (`route_stream`: key expansion K1 + a keys-only radix sort
    of its packed int32 keys, int64 past 2^31, `sort.py`) under no_grad;
-   surfels cull by their two ellipses (`surfel_cull_ellipses`);
+   surfels cull by their two ellipses;
 3. on the grad path, a `torch.autograd.Function` (`_Composite`,
    `_SurfelComposite`) that gathers the table's rows by `gid` and runs the
    training compositor (K2 with n_contrib and t_final; K5); its backward
@@ -47,11 +51,14 @@ from .common import (  # noqa: F401
 )
 from .composite import composite
 from .fused_preprocess import preprocess_kernel
+from .fused_surfel_preprocess import preprocess_surfel_kernel
 from .surfel import (  # noqa: F401
+    SurfelFrame,
     SurfelOutput,
     SurfelPrep,
     preprocess_surfel,
     surfel_cull_ellipses,
+    surfel_frame_plain,
     surfel_table,
 )
 from .surfel_backward import surfel_backward
@@ -217,22 +224,28 @@ def rasterize_surfel(
     """Rasterize 2DGS surfels on the camera's device (the counterpart of
     `scorp_tpu`'s `rasterize_surfel_pallas`; `scales` is [N, 2]); every
     tensor must lie on that device. Without any input that requires grad
-    this is the eval path (K4, nothing saved for a backward)."""
+    this is the eval path (the fused surfel preprocess and K4, nothing saved
+    for a backward)."""
     needs_grad = _needs_grad(cam, [means3d, opacities, bg, shs, colors_precomp, scales, quats,
                                    screen_deltas, alive])
     w, h = cam.width, cam.height
     tiles_x = grid_dims(w, h)[0]
-    with torch.set_grad_enabled(needs_grad), span("raster.preprocess"):
-        prep = preprocess_surfel(
-            means3d, opacities, cam, shs=shs, sh_degree=sh_degree,
-            colors_precomp=colors_precomp, scales=scales, quats=quats,
-            scale_modifier=scale_modifier, screen_deltas=screen_deltas, alive=alive,
-        )
-        table = surfel_table(prep)
+    kw = dict(shs=shs, sh_degree=sh_degree, colors_precomp=colors_precomp, scales=scales,
+              quats=quats, scale_modifier=scale_modifier, screen_deltas=screen_deltas,
+              alive=alive)
+    if needs_grad:
+        # the kernel has no backward: autograd records the plain stages
+        with span("raster.preprocess"):
+            prep = preprocess_surfel(means3d, opacities, cam, **kw)
+            table = surfel_table(prep)
+        with torch.no_grad(), span("raster.surfel_cull"):
+            ell, circ = surfel_cull_ellipses(prep)
+    else:
+        with torch.no_grad(), span("raster.preprocess"):
+            prep = preprocess_surfel_kernel(means3d, opacities, cam, **kw)
+        table, ell, circ = prep.table, prep.ell, prep.circ
     bg = bg.to(torch.float32).contiguous()
     with torch.no_grad():
-        with span("raster.surfel_cull"):
-            ell, circ = surfel_cull_ellipses(prep)
         route = route_stream(prep, w, h, cfg, geo=ell, geo2=circ)
     if needs_grad:
         outs = _SurfelComposite.apply(table, route.gid, route.tile_start, route.tile_count,

@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 # stream, i = int, z = size_t, f = float
 SIGNATURES = {
     "preprocess": {"scorp_preprocess": "p" * 13 + "iiiii" + "f" + "p" * 8},
+    "surfel_preprocess": {"scorp_surfel_preprocess": "p" * 12 + "iiiiii" + "f" + "p" * 8},
     "expand": {"scorp_expand_keys": "pppppiiiiiippp"},
     "sort": {"scorp_sort_keys_temp_bytes": "iiip", "scorp_sort_keys": "pppziiip"},
     "composite": {"scorp_composite": "ppppiipppppp"},

@@ -46,7 +46,7 @@ from ...core.camera import Camera
 from ...utils.trace import span
 
 if TYPE_CHECKING:
-    from .surfel import SurfelPrep
+    from .surfel import SurfelFrame, SurfelPrep
 
 TILE = 16  # pixels per tile side
 ALPHA_MIN = 1.0 / 255.0
@@ -96,7 +96,7 @@ class StreamRouting(NamedTuple):
 # and the length of `xy`, and, where no cull ellipse is given, the 3DGS
 # ellipse's fields `xy`, `conic` and `opacity` (`default_cull_geo`). The
 # surfel path always gives its two ellipses.
-Routable = Union[Preprocessed, "SurfelPrep"]
+Routable = Union[Preprocessed, "SurfelPrep", "SurfelFrame"]
 
 
 def grid_dims(width: int, height: int) -> tuple[int, int]:

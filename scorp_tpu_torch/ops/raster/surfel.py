@@ -28,6 +28,11 @@ FF·(1 − NEAR/z), about 1 ulp away).
 UV-disc conic and the low-pass circle; a key is kept iff either admits its
 tile. The routing (`common.route_stream`) takes a `SurfelPrep` as it is,
 with these two ellipses.
+
+These are the plain stages, which autograd records on the grad path. On
+the eval path `fused_surfel_preprocess.preprocess_surfel_kernel` computes
+what they give the routing and K4 (`SurfelFrame`) in one CUDA launch;
+`surfel_frame_plain` is that bundle by the plain stages.
 """
 
 from __future__ import annotations
@@ -78,9 +83,46 @@ class SurfelOutput(NamedTuple):
     num_dropped_keys: torch.Tensor
 
 
+class SurfelFrame(NamedTuple):
+    """What the eval path reads of the per-surfel stages: the routing's
+    fields (`xy`, `depth`, `rect`, `valid`), the radii, the [N, 21] stream
+    table (`surfel_table`) and K1's two cull ellipses
+    (`surfel_cull_ellipses`)."""
+
+    xy: torch.Tensor       # [N,2] projected centers (pixels)
+    depth: torch.Tensor    # [N] center view z
+    rect: torch.Tensor     # [N,4] int32 binning tile rect
+    valid: torch.Tensor    # [N] bool
+    radii: torch.Tensor    # [N] int32
+    table: torch.Tensor    # [N,21] stream rows
+    ell: torch.Tensor      # [N,6] the UV disc's screen conic
+    circ: torch.Tensor     # [N,6] the low-pass circle
+
+
 def _t2(opacity: torch.Tensor) -> torch.Tensor:
     """2·log(255·opacity), floored at 0: the rho below which alpha >= 1/255."""
     return torch.clamp_min(2.0 * torch.log(torch.clamp_min(opacity, 1e-12) * 255.0), 0.0)
+
+
+def surfel_camera(cam: Camera):
+    """(r_w2c, t_w2c, A, b): the world -> view rotation and translation, and
+    the world -> (xw, yw, w) map x A^T + b with A = K r_w2c, b = K t_w2c of
+    the pinhole K (principal point at the pixel centres' middle)."""
+    w, h = cam.width, cam.height
+    V = cam.viewmatrix
+    dev, dt = V.device, V.dtype
+    r_w2c = V[:3, :3].T            # world -> view rotation
+    t_w2c = V[3, :3]
+    fx = w / (2.0 * cam.tanfovx)
+    fy = h / (2.0 * cam.tanfovy)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    K = torch.stack([
+        torch.stack([fx, zero, zero + (w * 0.5 - 0.5)]),
+        torch.stack([zero, fy, zero + (h * 0.5 - 0.5)]),
+        torch.stack([zero, zero, one]),
+    ])
+    return r_w2c, t_w2c, K @ r_w2c, K @ t_w2c
 
 
 def preprocess_surfel(
@@ -100,23 +142,9 @@ def preprocess_surfel(
     n = means3d.shape[0]
     w, h = cam.width, cam.height
     tiles_x, tiles_y = grid_dims(w, h)
-    dev, dt = means3d.device, means3d.dtype
+    dt = means3d.dtype
 
-    V = cam.viewmatrix
-    r_w2c = V[:3, :3].T            # world -> view rotation
-    t_w2c = V[3, :3]
-    fx = w / (2.0 * cam.tanfovx)
-    fy = h / (2.0 * cam.tanfovy)
-    zero = torch.zeros((), dtype=dt, device=dev)
-    one = torch.ones((), dtype=dt, device=dev)
-    K = torch.stack([
-        torch.stack([fx, zero, zero + (w * 0.5 - 0.5)]),
-        torch.stack([zero, fy, zero + (h * 0.5 - 0.5)]),
-        torch.stack([zero, zero, one]),
-    ])
-    A = K @ r_w2c                  # world dir -> (xw, yw, w)
-    b = K @ t_w2c
-
+    r_w2c, t_w2c, A, b = surfel_camera(cam)
     R = quat_to_rotmat(quats)      # [N,3,3] columns t_u, t_v, t_n
     su = scales[:, 0] * scale_modifier
     sv = scales[:, 1] * scale_modifier
@@ -268,6 +296,18 @@ def surfel_table(prep: SurfelPrep) -> torch.Tensor:
          log2_opacity(prep.opacity)[:, None]],
         dim=1,
     )
+
+
+def surfel_frame_plain(means3d: torch.Tensor, opacities: torch.Tensor, cam: Camera,
+                       **kw) -> SurfelFrame:
+    """The eval path's per-surfel work by the plain stages
+    (`preprocess_surfel`, `surfel_table`, `surfel_cull_ellipses`), which
+    `fused_surfel_preprocess.preprocess_surfel_kernel` computes in one CUDA
+    launch; `kw` are `preprocess_surfel`'s keyword arguments."""
+    prep = preprocess_surfel(means3d, opacities, cam, **kw)
+    ell, circ = surfel_cull_ellipses(prep)
+    return SurfelFrame(prep.xy, prep.depth, prep.rect, prep.valid, prep.radii,
+                       surfel_table(prep), ell, circ)
 
 
 def depth_to_normal(cam: Camera, depth: torch.Tensor) -> torch.Tensor:

@@ -22,9 +22,14 @@ The spans, one name per stage for 3DGS and 2DGS alike; a dot nests:
   render                       render.render, render2d.render2d: a frame
   render.surfel_maps           render2d's surfel_maps: the world normal, the
                                depth mix and depth_to_normal of a frame
-  raster.preprocess            preprocess / preprocess_surfel (+ surfel_table)
-  raster.surfel_cull           rasterize_surfel's surfel_cull_ellipses: K1's
-                               two screen ellipses per surfel
+  raster.preprocess            the fused preprocess P / the fused surfel
+                               preprocess S (eval path; S also writes the
+                               [N, 21] table and K1's two ellipses), or
+                               preprocess / preprocess_surfel + surfel_table
+                               (grad path)
+  raster.surfel_cull           rasterize_surfel's grad path only:
+                               surfel_cull_ellipses, K1's two screen
+                               ellipses per surfel
   raster.route                 routing: expansion inputs, K1, sort, tile ranges
   raster.route.depth_order     the stable depth argsort
   raster.route.expand          K1 (or its plain version)

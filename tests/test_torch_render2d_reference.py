@@ -193,9 +193,12 @@ def test_tiny_traced_run_reads_every_layer(tiny_run):
     metrics = got["result"]["metrics"]
     new = {"k4_roofline_pct.render2d", "surfel_cull_ms.render2d", "surfel_maps_ms.render2d"}
     assert new <= set(got["per_layer"]) and len(got["per_layer"]) == 12
-    # no kernel runs on the CPU, so K4's roofline alone has nothing to read
+    # no kernel runs on the CPU, so K4's roofline has nothing to read; the
+    # eval path writes the cull ellipses in its fused preprocess and opens
+    # no raster.surfel_cull span, so its reader is silent too
+    silent = {"surfel_cull_ms.render2d"}
     for name in got["per_layer"]:
-        if "roofline" in name:
+        if "roofline" in name or name in silent:
             assert name not in metrics
         else:
             assert isinstance(metrics[name]["value"], float), name
@@ -221,8 +224,17 @@ def _spans_of(fn):
 
 
 def test_new_spans_recorded_under_a_profiler():
+    """The eval frame opens `render.surfel_maps`; `raster.surfel_cull` only
+    where autograd records the plain stages (the eval path's fused surfel
+    preprocess writes the ellipses inside `raster.preprocess`)."""
     params, alive = _scene(3, n=100)
     names = _spans_of(lambda: _program_maps(params, alive))
+    assert names.count("render.surfel_maps") == 1
+    assert names.count("raster.surfel_cull") == 0
+    state = state_from_numpy(params, alive, device="cpu")
+    state.params["xyz"].requires_grad_(True)
+    cam = make_camera(POSE["R"], POSE["T"], POSE["fovx"], POSE["fovy"], W, H, device="cpu")
+    names = _spans_of(lambda: render2d(cam, state, np.zeros(3, np.float32), sh_degree=3))
     for span in NEW_SPANS:
         assert names.count(span) == 1, span
 
