@@ -170,11 +170,17 @@ Phases, in order (any failure exits non-zero):
      pair equal; ms per pair, device busy, ATen ops, host syncs, peak
      memory), and
      `apps.extract_mesh.main` at its defaults (256^3 voxels, 8 train views:
-     one K1, sort and K4 per view; the card's TSDF grid against tsdf_fuse
-     on the CPU from the same depth and colour maps, weights equal, tsdf
-     and colours within 1e-5; fuse.ply and fuse_post.ply non-empty; the
+     one K1, sort, K4 and T per view; the card's TSDF grid, fused by T,
+     against tsdf_fuse on the CPU from the same depth and colour maps,
+     weights equal, tsdf and colours within 1e-5, and whether the grids
+     are equal bit for bit; fuse.ply and fuse_post.ply non-empty; the
      seconds of fusion, marching cubes and post-processing and the peak
-     device memory printed).
+     device memory printed); then the same maps fused by T into a
+     contracted 1024^3 `TsdfVolume`, the unbounded route's grid
+     (`check_tsdf_1024`: one T launch per view; seeded blocks of voxels,
+     half around voxels the earlier views saw, bit-equal to the plain
+     `_tsdf_update` of their values before the last view; the device
+     memory peak under the grid and 2 GB).
   14. full width, the scale-out and what consumes renders (`phase_dp`), on
      phase 12's scene: `parallel.dp_train_step` for DP_STEPS steps of
      DP_BATCH train cameras in a one-rank NCCL group (one K1, sort, K2 and K3
@@ -263,8 +269,9 @@ of phase 2, and K1's on the 2DGS paths too), K4 with its launches in the
 2DGS eval run of phase 8, K5 and K6 with theirs in the 2DGS training run of
 phase 10; K1-K3 also with their launches in phase 12 (`launches_scorp`),
 K1, K2 and K4-K6 with theirs in phase 13's object stages
-(`launches_scorp2d`), K1 and K4 with theirs in its mesh extraction
-(`launches_mesh`), and every kernel with its launches on phase 14's main
+(`launches_scorp2d`), K1, K4 and the TSDF fusion T with theirs in its
+mesh extraction (`launches_mesh`; T also with whether its grid equals the
+CPU fusion's bit for bit), and every kernel with its launches on phase 14's main
 path (`launches_dp`) and, apart, in that phase's checks
 (`launches_dp_checks`), each kernel's launches in each stage of phase 15
 (`launches_long`), and K1-K3's in each stage of phase 16 (`launches_nan`:
@@ -2095,18 +2102,19 @@ def _wrappers() -> dict:
     from scorp_tpu_torch.ops.raster.surfel_composite import (
         surfel_composite, surfel_composite_train,
     )
+    from scorp_tpu_torch.ops.tsdf import tsdf_fuse
 
     return {"preprocess": preprocess_kernel, "surfel_preprocess": preprocess_surfel_kernel,
             "expand": expand_keys, "sort": sort_keys,
             "composite": composite, "backward": composite_backward,
             "surfel_composite": surfel_composite,
             "surfel_composite_train": surfel_composite_train,
-            "surfel_backward": surfel_backward}
+            "surfel_backward": surfel_backward, "tsdf_fuse": tsdf_fuse}
 
 
 def kernel_launches() -> dict:
     """Every kernel wrapper's launch count (both fused preprocesses, K1,
-    the sort, K2-K6)."""
+    the sort, K2-K6, the TSDF fusion T)."""
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
@@ -2793,6 +2801,89 @@ def mesh_ply_counts(path: str) -> tuple[int, int]:
             int(head.split(b"element face ")[1].split()[0]))
 
 
+TSDF_RES = 1024       # extract_mesh --unbounded --mesh_res 1024, the 2DGS route for unbounded scenes
+TSDF_BLOCK = 1 << 16  # voxels in each block held against the plain update
+TSDF_BLOCKS = 8       # seeded blocks: half around voxels the earlier views saw, half uniform
+
+
+def check_tsdf_1024(maps: dict, cameras, radius: float, seed: int, device) -> dict:
+    """Kernel T at the unbounded route's shapes: every view's depth and
+    colour maps fused by `TsdfVolume.integrate` into a contracted 1024^3
+    grid at the scene's radius (sdf_trunc 4 voxels, depth_trunc 2 radii,
+    as extract_mesh --unbounded sets them), with T's launches counted from
+    0; seeded blocks of TSDF_BLOCK voxels, half of them around voxels the
+    earlier views saw, held against the plain `_tsdf_update` of their
+    values before the last view, weights, tsdf and colours bit for bit."""
+    import torch
+
+    from scorp_tpu_torch.pipeline import mesh
+
+    res, block = TSDF_RES, TSDF_BLOCK
+    views = []
+    for cam in cameras:
+        m = maps[cam.image_name]
+        views.append((m["render_depth"][0].to(torch.float32).contiguous(),
+                      m["render"].to(torch.float32).contiguous(), cam.to_torch(device)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    vol = mesh.TsdfVolume.contracted(np.zeros(3), radius, res, 4.0, 2.0 * radius, device)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for depth, color, cam in views[:-1]:
+        vol.integrate(depth, color, cam)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    rng = np.random.default_rng(seed)
+    seen = torch.nonzero(vol.weight > 0)[:, 0]
+    near = seen[torch.as_tensor(rng.integers(0, max(seen.numel(), 1), TSDF_BLOCKS // 2),
+                                device=seen.device)].tolist() if seen.numel() else []
+    starts = [min(max(int(i) - block // 2, 0), res ** 3 - block) for i in near]
+    starts += [int(s) for s in rng.integers(0, res ** 3 - block, TSDF_BLOCKS - len(starts))]
+    del seen
+    before = {s: (vol.tsdf[s:s + block].clone(), vol.weight[s:s + block].clone(),
+                  vol.colors[s:s + block].clone()) for s in starts}
+    depth, color, cam = views[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the draw's temporaries are not the fusion's
+    t = time.perf_counter()
+    vol.integrate(depth, color, cam)
+    torch.cuda.synchronize()
+    fuse_s += time.perf_counter() - t
+    launches = kernel_launches()
+    peak = max(peak, torch.cuda.max_memory_allocated() - base_bytes)
+    fx = cam.width / (2.0 * float(cam.tanfovx))
+    fy = cam.height / (2.0 * float(cam.tanfovy))
+    f32 = [mesh._f32(x, device) for x in (fx, fy, cam.width * 0.5 - 0.5,
+                                          cam.height * 0.5 - 0.5, vol.sdf_trunc,
+                                          vol.depth_trunc)]
+    weights_equal, bit_equal, updated = True, True, 0
+    for s, (t0, w0, c0) in before.items():
+        xyz = torch.as_tensor(mesh._voxel_centres(vol.kind, res, vol.base, vol.scale, s,
+                                                  s + block), device=device)
+        t1, w1, c1 = mesh._tsdf_update(t0, w0, c0, xyz.unbind(1), depth, color,
+                                       cam.viewmatrix, *f32, width=cam.width,
+                                       height=cam.height)
+        updated += int((w1 > w0).sum())
+        same_w = torch.equal(vol.weight[s:s + block], w1)
+        weights_equal &= same_w
+        bit_equal &= same_w and torch.equal(vol.tsdf[s:s + block], t1) and torch.equal(
+            vol.colors[s:s + block], c1)
+    out = dict(res=res, width=cam.width, height=cam.height, views=len(views),
+               observed=int((vol.weight > 0).sum()) / res ** 3, blocks=len(starts),
+               near_blocks=len(near), compared=len(starts) * block, updated=updated,
+               weights_equal=weights_equal, bit_equal=bit_equal,
+               launches=launches["tsdf_fuse"], other_launches=sum(launches.values())
+               - launches["tsdf_fuse"], fuse_ms_per_view=1e3 * fuse_s / len(views),
+               peak_gib=peak / 2 ** 30, grid_gib=20 * res ** 3 / 2 ** 30)
+    del vol, before
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_scorp2d(args, device):
     """Phase 13: the 2DGS object path and mesh extraction at full width
     through their entry points, on phase 12's scene and masks with its
@@ -3014,7 +3105,7 @@ def phase_scorp2d(args, device):
 
     # 5. mesh extraction at extract_mesh's defaults (bounded, mesh_res 256)
     times = {"render_s": 0.0}
-    grid = {}
+    grid, recorded = {}, {}
     real_fuse, real_mc = mesh.tsdf_fuse, marching_cubes.marching_cubes
     real_post = extract_mesh.post_process_mesh
 
@@ -3030,6 +3121,8 @@ def phase_scorp2d(args, device):
             maps[cam.image_name] = {"render_depth": pkg["render_depth"], "render": pkg["render"]}
             return pkg
 
+        recorded.update(maps=maps, cameras=list(cameras))
+
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = real_fuse(recording, cameras, *a, **kw)
@@ -3041,6 +3134,7 @@ def phase_scorp2d(args, device):
         times["fuse_cpu_s"] = time.perf_counter() - t
         grid.update(res=out[0].shape[0], observed=float((out[1] > 0).mean()),
                     weights_equal=bool(np.array_equal(out[1], ref[1])),
+                    bit_equal=all(np.array_equal(a, b) for a, b in zip(out[:3], ref[:3])),
                     tsdf_err=float(np.abs(out[0] - ref[0]).max()),
                     color_err=float(np.abs(out[2] - ref[2]).max()))
         return out
@@ -3068,8 +3162,10 @@ def phase_scorp2d(args, device):
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     launches["mesh"] = kernel_launches()
     check(launches["mesh"] == launches_of(surfel_preprocess=n_train, expand=n_train,
-                                          sort=n_train, surfel_composite=n_train),
-          f"one fused surfel preprocess, K1, sort and K4 per training view ({n_train})")
+                                          sort=n_train, surfel_composite=n_train,
+                                          tsdf_fuse=n_train),
+          f"one fused surfel preprocess, K1, sort, K4 and TSDF fusion T per training view "
+          f"({n_train})")
     check(grid["res"] == 256, f"a 256^3 grid ({grid['res'] ** 3} voxels)")
     check(grid["weights_equal"], "the card's TSDF weights equal the CPU fusion's")
     check(grid["tsdf_err"] <= 1e-5 and grid["color_err"] <= 1e-5,
@@ -3084,7 +3180,28 @@ def phase_scorp2d(args, device):
           f"{n_train} render2d {times['render_s']:.3f} s), marching cubes "
           f"{times['marching_cubes_s']:.3f} s, post-processing {times['post_process_s']:.3f} "
           f"s; CPU fusion {times['fuse_cpu_s']:.3f} s; peak device memory {peak_mib:.1f} MiB; "
-          f"observed voxels {grid['observed']:.4f}; launches {launches['mesh']}")
+          f"observed voxels {grid['observed']:.4f}; card grid bit-equal to the CPU's "
+          f"{grid['bit_equal']}; launches {launches['mesh']}")
+    # 6. the same maps fused by T into the unbounded route's 1024^3 grid
+    t1024 = check_tsdf_1024(recorded["maps"], recorded["cameras"],
+                            float(scene.cameras_extent), args.seed, device)
+    print(f"  contracted {t1024['res']}^3 grid from {t1024['views']} maps of "
+          f"{t1024['width']}x{t1024['height']}: {t1024['fuse_ms_per_view']:.3f} ms a view, "
+          f"observed voxels {t1024['observed']:.6f}, peak {t1024['peak_gib']:.2f} GiB (grid "
+          f"{t1024['grid_gib']:.2f} GiB); {t1024['blocks']} blocks of {TSDF_BLOCK} voxels "
+          f"({t1024['near_blocks']} around seen voxels), {t1024['updated']} updated by the "
+          f"last view, bit-equal to the plain update {t1024['bit_equal']}; T launches "
+          f"{t1024['launches']}")
+    check(t1024["launches"] == t1024["views"] == n_train and t1024["other_launches"] == 0,
+          f"one T launch per view into the 1024^3 grid ({n_train}), no other kernel")
+    check(t1024["near_blocks"] == TSDF_BLOCKS // 2 and t1024["updated"] > 1000,
+          f"the last view updates {t1024['updated']} of the compared voxels (> 1000)")
+    check(t1024["weights_equal"] and t1024["bit_equal"],
+          "T's contracted 1024^3 grid equals the plain update bit for bit on the seeded blocks "
+          "(weights, tsdf, colours)")
+    check(t1024["peak_gib"] < t1024["grid_gib"] + 2.0,
+          f"the 1024^3 fusion's device memory peak {t1024['peak_gib']:.2f} GiB is under the "
+          f"grid + 2 GiB: no [R^3, 3] coordinate array")
     wall = time.perf_counter() - t_phase
     print(f"  phase wall {wall:.2f} s")
     keys = ("preprocess", "surfel_preprocess", "expand", "sort", "composite",
@@ -3097,6 +3214,7 @@ def phase_scorp2d(args, device):
         "align_rounds": {str(k): v for k, v in sorted(rounds.items())},
         "align_centroid_err": [current["coarse_err"], c_err], "orb": orb_card,
         "mesh_s": mesh_s, **times, "grid": grid, "peak_mib": peak_mib, "mesh_counts": counts,
+        "tsdf_1024": t1024,
         "wall_s": wall,
     }
 
@@ -4290,7 +4408,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     import scorp_tpu_torch  # noqa: F401  (fails when run outside the repository)
-    from scorp_tpu_torch.ops.raster import _build
+    from scorp_tpu_torch.ops import _build
     from scorp_tpu_torch.ops.raster.backward import REPLACES as K3_REPLACES
     from scorp_tpu_torch.ops.raster.backward import SOURCE as K3_SOURCE
     from scorp_tpu_torch.ops.raster.composite import REPLACES as K2_REPLACES
@@ -4303,6 +4421,8 @@ def main(argv=None) -> int:
     from scorp_tpu_torch.ops.raster.fused_surfel_preprocess import SOURCE as S_SOURCE
     from scorp_tpu_torch.ops.raster.surfel_backward import REPLACES as K6_REPLACES
     from scorp_tpu_torch.ops.raster.surfel_backward import SOURCE as K6_SOURCE
+    from scorp_tpu_torch.ops.tsdf import REPLACES as T_REPLACES
+    from scorp_tpu_torch.ops.tsdf import SOURCE as T_SOURCE
     from scorp_tpu_torch.ops.raster.surfel_composite import REPLACES as K4_REPLACES
     from scorp_tpu_torch.ops.raster.surfel_composite import REPLACES_TRAIN as K5_REPLACES
     from scorp_tpu_torch.ops.raster.surfel_composite import SOURCE as SK_SOURCE
@@ -4523,6 +4643,12 @@ def main(argv=None) -> int:
          "launches_dp": dp_launches["surfel_backward"],
          "launches_dp_checks": dp["check_launches"]["surfel_backward"],
          "launches_long": long("surfel_backward")},
+        {"name": "T tsdf_fuse", "route": "cuda", "source": T_SOURCE, "replaces": T_REPLACES,
+         "launches_mesh": mesh_launches["tsdf_fuse"],
+         "bit_equal_to_cpu": scorp2d["grid"]["bit_equal"],
+         "max_abs_err": max(scorp2d["grid"]["tsdf_err"], scorp2d["grid"]["color_err"]),
+         "fuse_s": scorp2d["fuse_s"], "res": scorp2d["grid"]["res"],
+         "contracted_1024": scorp2d["tsdf_1024"]},
     ]
     print(f"  training app: loss {train['loss_first']:.6f} -> {train['loss_last']:.6f}, "
           f"{train['wall_s']:.2f} s; train_step {step['step_ms']:.3f} ms")

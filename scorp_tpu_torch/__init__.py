@@ -3,7 +3,7 @@
 A second package beside `scorp_tpu` (the JAX/Pallas reference, which it never
 imports). Plain tensor code is PyTorch; every Pallas kernel of the reference
 becomes a kernel written by hand in CUDA C++ for `sm_90a` (`csrc/`), built at
-first use by `ops/raster/_build.py` and bound with ctypes. Each kernel keeps a
+first use by `ops/_build.py` and bound with ctypes. Each kernel keeps a
 plain PyTorch version beside it: the wrapper runs that version only for CPU
 tensors, and launches the kernel (or raises) for CUDA tensors.
 

@@ -1,8 +1,9 @@
 """Mesh extraction CLI for trained 2DGS models, port of
 `scorp_tpu.apps.extract_mesh`: renders the training views through the
 port's `render2d` (K1, then the surfel compositor K4), TSDF-fuses their
-depth and colour on the device, writes `train/ours_<iter>/fuse.ply`, then
-the floater-filtered `fuse_post.ply`.
+depth and colour into a `TsdfVolume` on the device (kernel T on the card),
+writes `train/ours_<iter>/fuse.ply`, then the floater-filtered
+`fuse_post.ply`.
 
 Auto knobs as the 2DGS upstream's: depth_trunc = 2 x scene radius,
 voxel_size = depth_trunc / mesh_res, sdf_trunc = 5 x voxel_size.
@@ -87,7 +88,9 @@ def main(argv=None):
     parser.add_argument("--unbounded", action="store_true",
                         help="Mesh: using unbounded mode for meshing")
     parser.add_argument("--mesh_res", default=256, type=int,
-                        help="Mesh: resolution for unbounded mesh extraction")
+                        help="Mesh: resolution for unbounded mesh extraction (the 2DGS "
+                             "reference code uses 1024 for unbounded scenes such as "
+                             "Mip-NeRF 360's; 256 is the JAX package's default)")
     parser.add_argument("--depth_ratio", default=1.0, type=float)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to render and fuse on (default cuda; cpu runs "

@@ -3,7 +3,7 @@
 Each source is compiled by `nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -fmad=false -shared -Xcompiler -fPIC` into `build/kernels/<name>-<hash>.so` at the root
 of the checkout, at first use, and loaded with ctypes (a plain C interface:
-pointers and the CUDA stream pass as void*, sizes as int, scalars as float, and each entry
+pointers and the CUDA stream pass as void*, sizes as int, scalars as float or double, and each entry
 point returns the cudaError_t of its launch). The hash covers the source
 and the flags, so an edited source is rebuilt. `build_all` starts one nvcc
 per source at once. A failed build raises; nothing falls back.
@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-PACKAGE_DIR = Path(__file__).resolve().parents[2]
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 # -fmad=false: no multiply-add contraction, so every kernel rounds each
@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # C entry points of each source and their argument kinds: p = pointer or
-# stream, i = int, z = size_t, f = float
+# stream, i = int, z = size_t, f = float, d = double
 SIGNATURES = {
     "preprocess": {"scorp_preprocess": "p" * 13 + "iiiii" + "f" + "p" * 8},
     "surfel_preprocess": {"scorp_surfel_preprocess": "p" * 12 + "iiiiii" + "f" + "p" * 8},
@@ -48,10 +48,11 @@ SIGNATURES = {
         "scorp_surfel_composite_train": "ppppii" + "p" * 12,
     },
     "surfel_backward": {"scorp_surfel_backward": "p" * 17 + "iip"},
+    "tsdf_fuse": {"scorp_tsdf_fuse": "ii" + "d" * 4 + "p" * 5 + "ii" + "ff" + "p" * 4},
 }
 
 _ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "z": ctypes.c_size_t,
-              "f": ctypes.c_float}
+              "f": ctypes.c_float, "d": ctypes.c_double}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from ._build import check_tensor, load
+from .._build import check_tensor, load
 from .common import ALPHA_MAX, ALPHA_MIN, DATA_ROWS
 from .composite import PIXELS, PLAIN_CHUNK, pixel_coords
 

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from ._build import check_tensor, load
+from .._build import check_tensor, load
 from .common import ALPHA_MAX, ALPHA_MIN, DATA_ROWS, T_EPS, TILE
 
 REPLACES = "scorp_tpu/ops/raster/pallas_fwd.py:415 _fwd_kernel"

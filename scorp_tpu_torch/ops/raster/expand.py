@@ -34,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from ._build import check_tensor, load
+from .._build import check_tensor, load
 from .common import (
     TILE,
     Routable,

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ...core.camera import Camera
-from ._build import check_tensor, load
+from .._build import check_tensor, load
 from .common import Preprocessed, preprocess_plain
 
 REPLACES = "scorp_tpu/ops/raster/common.py:343 preprocess (no TPU kernel: XLA fuses it)"

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ...core.camera import Camera
-from ._build import check_tensor, load
+from .._build import check_tensor, load
 from .surfel import SURFEL_COLS, SurfelFrame, surfel_camera, surfel_frame_plain
 
 REPLACES = ("scorp_tpu/ops/raster/surfel.py preprocess_surfel, surfel_table, "

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from ._build import check_tensor, load
+from .._build import check_tensor, load
 
 SOURCE = "scorp_tpu_torch/csrc/sort.cu"
 

@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from ._build import check_tensor, load
+from .._build import check_tensor, load
 from .composite import PIXELS, PLAIN_CHUNK, pixel_coords
 from .surfel import (
     ALPHA_MAX,

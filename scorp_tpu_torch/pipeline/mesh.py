@@ -2,15 +2,21 @@
 `scorp_tpu.pipeline.mesh`.
 
 Render the training views, TSDF-fuse their depth maps into a voxel grid,
-extract a triangle mesh. The TSDF update is one pass per view on the
-grid's device (plain PyTorch, as the JAX package's is plain jitted XLA):
-every voxel projects into the view's depth and colour images and takes a
-bilinear sample, with the truncated-SDF weighted running average
-(voxel 0.004 / sdf_trunc 0.02 / depth_trunc 3 defaults). The update is
-written out element by element (no matmul, no fused op of PyTorch's
-choosing), so the grid is the same bit for bit on the CPU and on the card. Triangulation defaults to marching cubes
-(`pipeline/marching_cubes.py`), with naive surface nets (one vertex per
-sign-change cell) kept as an alternative; both run on the host.
+extract a triangle mesh. The grid is a `TsdfVolume`: tsdf, weight and
+colour of every voxel on the grid's device, its voxels described by the
+grid's kind (bounded: an axis-aligned box; contracted: the mip-NeRF-360
+contraction of the whole unbounded scene into [-2, 2]^3) and never stored
+as coordinates. Each view is one update of the whole grid: every voxel
+projects into the view's depth and colour images and takes a bilinear
+sample, with the truncated-SDF weighted running average (voxel 0.004 /
+sdf_trunc 0.02 / depth_trunc 3 defaults). On the card the update is kernel
+T (`ops/tsdf.py`), one launch a view; elsewhere it is the plain
+`_tsdf_update` over blocks of voxel centres. The update is written out
+element by element (no matmul, no fused op of PyTorch's choosing), so the
+grid is the same bit for bit on the CPU and on the card. Triangulation
+defaults to marching cubes (`pipeline/marching_cubes.py`), with naive
+surface nets (one vertex per sign-change cell) kept as an alternative;
+both run on the host.
 """
 
 from __future__ import annotations
@@ -20,7 +26,15 @@ import os
 import numpy as np
 import torch
 
+from ..core.camera import Camera
 from ..device import resolve_device
+from ..ops.tsdf import tsdf_fuse as tsdf_fuse_kernel
+from ..utils.trace import span
+
+GRID_KINDS = ("bounded", "contracted")
+# voxels a block of the plain update: ~40 f32 and int64 temporaries of
+# this length, a few hundred MB
+PLAIN_BLOCK = 1 << 20
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -91,26 +105,121 @@ def _tsdf_update(tsdf, weight, color_acc, voxels, depth_img, color_img, view_t,
     return tsdf, w_tot, color_acc
 
 
-def _fuse(render_fn, cameras, voxels, m: int, sdf_trunc: float, depth_trunc: float, dev):
-    """Run every camera's update over an M-voxel grid on `dev`."""
-    tsdf = torch.ones(m, dtype=torch.float32, device=dev)
-    weight = torch.zeros(m, dtype=torch.float32, device=dev)
-    colors = torch.zeros((m, 3), dtype=torch.float32, device=dev)
-    trunc, dtrunc = _f32(sdf_trunc, dev), _f32(depth_trunc, dev)
+def _voxel_centres(kind: str, res: int, base, scale: float, start: int,
+                   stop: int) -> np.ndarray:
+    """[stop - start, 3] f32 world centres of the flat voxels start..stop-1
+    (index (i R + j) R + k) of an R^3 grid, made in float64 and rounded
+    once. bounded: (idx + 0.5) * scale + base per axis (base the origin,
+    scale the voxel size). contracted: (idx + 0.5) * step - 2 with step =
+    4 / R, the outer shell pulled inside the invertible region (|c| = 1.98),
+    uncontracted, times scale (the scene's radius) plus base (its centre)."""
+    n = np.arange(start, stop, dtype=np.int64)
+    ijk = np.stack([n // (res * res), (n // res) % res, n % res], -1)
+    if kind == "bounded":
+        world = (ijk + 0.5) * scale + np.asarray(base, np.float64)
+    else:
+        contracted = (ijk + 0.5) * (4.0 / res) - 2.0
+        cnorm = np.linalg.norm(contracted, axis=-1, keepdims=True)
+        contracted = np.where(cnorm >= 1.98,
+                              contracted * (1.98 / np.maximum(cnorm, 1e-9)), contracted)
+        world = uncontract(contracted) * scale + np.asarray(base, np.float64)
+    return world.astype(np.float32)
+
+
+class TsdfVolume:
+    """A dense R^3 TSDF grid on one device: `tsdf` [R^3] (ones), `weight`
+    [R^3] (zeros) and `colors` [R^3, 3] (zeros), f32, flat in the order
+    (i R + j) R + k; 20 bytes a voxel. The voxels are described by `kind`,
+    `res`, `base` and `scale` (see `_voxel_centres`) and are never
+    materialised. `integrate` fuses one view."""
+
+    def __init__(self, kind: str, res: int, base, scale: float, sdf_trunc: float,
+                 depth_trunc: float, device: str | torch.device = "cuda"):
+        if kind not in GRID_KINDS:
+            raise ValueError(f"grid kind {kind!r} is not one of {GRID_KINDS}")
+        self.kind, self.res = kind, int(res)
+        self.base = np.asarray(base, np.float64).reshape(3)
+        self.scale = float(scale)
+        self.step = 4.0 / self.res
+        self.sdf_trunc, self.depth_trunc = float(sdf_trunc), float(depth_trunc)
+        self.device = resolve_device(device)
+        self.tsdf = torch.ones(self.voxels, dtype=torch.float32, device=self.device)
+        self.weight = torch.zeros(self.voxels, dtype=torch.float32, device=self.device)
+        self.colors = torch.zeros((self.voxels, 3), dtype=torch.float32, device=self.device)
+
+    @classmethod
+    def bounded(cls, center, extent: float, voxel_size: float, sdf_trunc: float,
+                depth_trunc: float, max_resolution: int,
+                device: str | torch.device) -> "TsdfVolume":
+        """The box center +- extent at voxel_size, at most max_resolution
+        voxels a side (the voxel size then grows to fit)."""
+        res = min(max_resolution, int(np.ceil(2 * extent / voxel_size)))
+        voxel_size = 2 * extent / res
+        return cls("bounded", res, np.asarray(center) - extent, voxel_size,
+                   sdf_trunc / voxel_size * voxel_size, depth_trunc, device)
+
+    @classmethod
+    def contracted(cls, center, scale_radius: float, resolution: int, sdf_trunc_vox: float,
+                   depth_trunc: float, device: str | torch.device) -> "TsdfVolume":
+        """The whole unbounded scene, contracted around `center` at
+        `scale_radius` into [-2, 2]^3 at `resolution` voxels a side; the
+        truncation is sdf_trunc_vox voxels of the contracted grid, in world
+        units at the radius."""
+        step = 4.0 / resolution
+        return cls("contracted", resolution, center, scale_radius,
+                   sdf_trunc_vox * step * scale_radius, depth_trunc, device)
+
+    @property
+    def voxels(self) -> int:
+        return self.res ** 3
+
+    def integrate(self, depth: torch.Tensor, color: torch.Tensor, cam: Camera) -> None:
+        """Fuse one view: depth [H, W] and color [3, H, W] (f32, on the
+        grid's device) seen by `cam`. Kernel T on the card; the plain
+        update in blocks elsewhere."""
+        with span("mesh.fuse"):
+            if self.device.type == "cuda":
+                tsdf_fuse_kernel(self.tsdf, self.weight, self.colors, depth, color, cam,
+                                 contracted=self.kind == "contracted", res=self.res,
+                                 base=self.base, scale=self.scale,
+                                 sdf_trunc=self.sdf_trunc, depth_trunc=self.depth_trunc)
+            else:
+                self.integrate_plain(depth, color, cam)
+
+    def integrate_plain(self, depth: torch.Tensor, color: torch.Tensor, cam: Camera) -> None:
+        """`integrate` by the plain `_tsdf_update`, PLAIN_BLOCK voxels at a
+        time, on any device (the CPU's path; on the card the kernel's
+        yardstick)."""
+        dev = self.device
+        w, h = cam.width, cam.height
+        fx = w / (2.0 * float(cam.tanfovx))
+        fy = h / (2.0 * float(cam.tanfovy))
+        scalars = [_f32(v, dev) for v in (fx, fy, w * 0.5 - 0.5, h * 0.5 - 0.5,
+                                          self.sdf_trunc, self.depth_trunc)]
+        for start in range(0, self.voxels, PLAIN_BLOCK):
+            sl = slice(start, min(start + PLAIN_BLOCK, self.voxels))
+            xyz = torch.as_tensor(_voxel_centres(self.kind, self.res, self.base, self.scale,
+                                                 sl.start, sl.stop), device=dev)
+            self.tsdf[sl], self.weight[sl], self.colors[sl] = _tsdf_update(
+                self.tsdf[sl], self.weight[sl], self.colors[sl], xyz.unbind(1), depth, color,
+                cam.viewmatrix, *scalars, width=w, height=h)
+
+    def grids(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(tsdf [R, R, R], weight [R, R, R], colors [R, R, R, 3]) on the
+        host, for the triangulation."""
+        shape = (self.res,) * 3
+        return (self.tsdf.cpu().numpy().reshape(shape), self.weight.cpu().numpy().reshape(shape),
+                self.colors.cpu().numpy().reshape(shape + (3,)))
+
+
+def _fuse(render_fn, cameras, volume: TsdfVolume) -> None:
+    """Render every camera and fuse its depth and colour into `volume`."""
+    dev = volume.device
     for cam in cameras:
         pkg = render_fn(cam)
-        ct = cam.to_torch(dev)
-        w, h = ct.width, ct.height
-        fx = w / (2.0 * float(ct.tanfovx))
-        fy = h / (2.0 * float(ct.tanfovy))
         depth = torch.as_tensor(pkg["render_depth"], device=dev)[0].to(torch.float32)
         color = torch.as_tensor(pkg["render"], device=dev).to(torch.float32)
-        tsdf, weight, colors = _tsdf_update(
-            tsdf, weight, colors, voxels, depth, color, ct.viewmatrix,
-            _f32(fx, dev), _f32(fy, dev), _f32(w * 0.5 - 0.5, dev), _f32(h * 0.5 - 0.5, dev),
-            trunc, dtrunc, width=w, height=h,
-        )
-    return tsdf, weight, colors
+        volume.integrate(depth.contiguous(), color.contiguous(), cam.to_torch(dev))
 
 
 def tsdf_fuse(
@@ -129,24 +238,10 @@ def tsdf_fuse(
     render_fn(camera) -> dict with 'render' [3,H,W] and 'render_depth'
     [1,H,W] (tensors or arrays). Returns (tsdf [R,R,R], weights, colors
     [R,R,R,3], origin, voxel_size) on the host."""
-    dev = resolve_device(device)
-    res = min(max_resolution, int(np.ceil(2 * extent / voxel_size)))
-    voxel_size = 2 * extent / res
-    origin = np.asarray(center) - extent
-    # voxel centres (i + 0.5) * voxel_size + origin in float64, then f32, per
-    # axis; they broadcast to the [R, R, R] grid
-    idx = torch.arange(res, dtype=torch.float64, device=dev)
-    axes = [((idx + 0.5) * voxel_size + float(origin[a])).to(torch.float32) for a in range(3)]
-    voxels = (axes[0][:, None, None], axes[1][None, :, None], axes[2][None, None, :])
-    tsdf, weight, colors = _fuse(render_fn, cameras, voxels, res ** 3,
-                                 sdf_trunc / voxel_size * voxel_size, depth_trunc, dev)
-    shape = (res, res, res)
-    return (
-        tsdf.cpu().numpy().reshape(shape),
-        weight.cpu().numpy().reshape(shape),
-        colors.cpu().numpy().reshape(shape + (3,)),
-        origin, voxel_size,
-    )
+    volume = TsdfVolume.bounded(center, extent, voxel_size, sdf_trunc, depth_trunc,
+                                max_resolution, device=device)
+    _fuse(render_fn, cameras, volume)
+    return (*volume.grids(), volume.base, volume.scale)
 
 
 def surface_nets(tsdf: np.ndarray, weight: np.ndarray, origin, voxel_size,
@@ -379,29 +474,15 @@ def tsdf_fuse_unbounded(render_fn, cameras, center, scale_radius: float,
                         depth_trunc: float = 1e9, method: str = "marching_cubes",
                         device: str | torch.device = "cuda"):
     """TSDF fusion on a grid defined in CONTRACTED coordinates (covers the
-    whole unbounded scene in a [-2, 2]^3 cube): voxel centers uncontract to
-    world space (on the host, in float64) before projecting into the depth
-    maps."""
-    dev = resolve_device(device)
-    idx = np.arange(resolution)
-    gx, gy, gz = np.meshgrid(idx, idx, idx, indexing="ij")
-    step = 4.0 / resolution
-    contracted = (np.stack([gx, gy, gz], -1).reshape(-1, 3) + 0.5) * step - 2.0
-    # clamp the outer shell inside the invertible region
-    cnorm = np.linalg.norm(contracted, axis=-1, keepdims=True)
-    contracted = np.where(cnorm >= 1.98, contracted * (1.98 / np.maximum(cnorm, 1e-9)),
-                          contracted)
-    world = uncontract(contracted) * scale_radius + np.asarray(center)
-    voxels = torch.as_tensor(world.astype(np.float32), device=dev).unbind(1)
-
-    sdf_trunc = sdf_trunc_vox * step * scale_radius
-    tsdf, weight, colors = _fuse(render_fn, cameras, voxels, len(world), sdf_trunc,
-                                 depth_trunc, dev)
-    shape = (resolution, resolution, resolution)
+    whole unbounded scene in a [-2, 2]^3 cube): each voxel centre
+    uncontracts to world space (in float64) before projecting into the
+    depth maps."""
+    volume = TsdfVolume.contracted(center, scale_radius, resolution, sdf_trunc_vox,
+                                   depth_trunc, device=device)
+    _fuse(render_fn, cameras, volume)
+    tsdf, weight, colors = volume.grids()
     # mesh vertices come out in contracted coords; uncontract after
-    verts, faces, vcols = _triangulate(method)(
-        tsdf.cpu().numpy().reshape(shape), weight.cpu().numpy().reshape(shape),
-        np.full(3, -2.0), step, colors.cpu().numpy().reshape(shape + (3,)),
-    )
+    verts, faces, vcols = _triangulate(method)(tsdf, weight, np.full(3, -2.0), volume.step,
+                                               colors)
     verts = uncontract(verts) * scale_radius + np.asarray(center)
     return verts, faces, vcols

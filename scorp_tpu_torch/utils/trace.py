@@ -43,6 +43,8 @@ The spans, one name per stage for 3DGS and 2DGS alike; a dot nests:
   step.backward                torch.autograd.grad
   step.update                  densification statistics and Adam
   densify.round                a densification round's grow, prune, clone, split
+  mesh.fuse                    pipeline/mesh.py TsdfVolume.integrate: one view's
+                               TSDF update of the grid (kernel T on the card)
 """
 
 from __future__ import annotations

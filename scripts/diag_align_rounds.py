@@ -13,8 +13,8 @@ scene-side point.
     python scripts/diag_align_rounds.py [--factor 0.25] [--matcher13 orb]
 
 `--factor` scales the smoke's 1600x1066 views (n by its square, the scales
-by its inverse, as in the verify notes). Launch and 256^3 checks fail on
-the CPU by design and are only listed. About 4 minutes at 0.25 on 4 threads.
+by its inverse, as in the verify notes). The mesh checks run at 64^3;
+launch and 256^3 checks fail on the CPU by design and are only listed. About 4 minutes at 0.25 on 4 threads.
 """
 
 import argparse
@@ -75,6 +75,7 @@ def cpu_only(factor: float) -> list:
     cs.bench_scene_draw = scaled_draw
     main = extract_mesh.main
     extract_mesh.main = lambda argv: main(list(argv) + ["--mesh_res", "64"])
+    cs.TSDF_RES = 64  # phase 13's contracted-grid check, at the same size
     return failed
 
 

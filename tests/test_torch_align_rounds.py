@@ -85,6 +85,7 @@ def test_align_2dgs_rounds_beside_jax(tmp_path, monkeypatch):
     mesh_main = extract_mesh.main
     monkeypatch.setattr(extract_mesh, "main",
                         lambda argv: mesh_main(list(argv) + ["--mesh_res", "64"]))
+    monkeypatch.setattr(cs, "TSDF_RES", 64)  # phase 13's contracted-grid check, the same size
     models = {}
     port_align = talign2d.align
 
