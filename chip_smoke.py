@@ -2811,11 +2811,14 @@ def check_tsdf_1024(maps: dict, cameras, radius: float, seed: int, device) -> di
     colour maps fused by `TsdfVolume.integrate` into a contracted 1024^3
     grid at the scene's radius (sdf_trunc 4 voxels, depth_trunc 2 radii,
     as extract_mesh --unbounded sets them), with T's launches counted from
-    0; seeded blocks of TSDF_BLOCK voxels, half of them around voxels the
+    0 and its bricks (`tsdf_fuse.bricks`, the live ones by
+    `tsdf_fuse.live_bricks()`) from their values before; seeded blocks of
+    TSDF_BLOCK voxels, half of them around voxels the
     earlier views saw, held against the plain `_tsdf_update` of their
     values before the last view, weights, tsdf and colours bit for bit."""
     import torch
 
+    from scorp_tpu_torch.ops.tsdf import brick_layout, tsdf_fuse
     from scorp_tpu_torch.pipeline import mesh
 
     res, block = TSDF_RES, TSDF_BLOCK
@@ -2830,6 +2833,7 @@ def check_tsdf_1024(maps: dict, cameras, radius: float, seed: int, device) -> di
     base_bytes = torch.cuda.memory_allocated()
     vol = mesh.TsdfVolume.contracted(np.zeros(3), radius, res, 4.0, 2.0 * radius, device)
     reset_launches()
+    bricks0, live0 = tsdf_fuse.bricks, tsdf_fuse.live_bricks()
     torch.cuda.synchronize()
     t = time.perf_counter()
     for depth, color, cam in views[:-1]:
@@ -2854,6 +2858,7 @@ def check_tsdf_1024(maps: dict, cameras, radius: float, seed: int, device) -> di
     torch.cuda.synchronize()
     fuse_s += time.perf_counter() - t
     launches = kernel_launches()
+    bricks, live = tsdf_fuse.bricks - bricks0, tsdf_fuse.live_bricks() - live0
     peak = max(peak, torch.cuda.max_memory_allocated() - base_bytes)
     fx = cam.width / (2.0 * float(cam.tanfovx))
     fy = cam.height / (2.0 * float(cam.tanfovy))
@@ -2877,7 +2882,9 @@ def check_tsdf_1024(maps: dict, cameras, radius: float, seed: int, device) -> di
                near_blocks=len(near), compared=len(starts) * block, updated=updated,
                weights_equal=weights_equal, bit_equal=bit_equal,
                launches=launches["tsdf_fuse"], other_launches=sum(launches.values())
-               - launches["tsdf_fuse"], fuse_ms_per_view=1e3 * fuse_s / len(views),
+               - launches["tsdf_fuse"], bricks=bricks, grid_bricks=brick_layout(res)[2],
+               live_bricks=live, live_share=live / max(bricks, 1),
+               fuse_ms_per_view=1e3 * fuse_s / len(views),
                peak_gib=peak / 2 ** 30, grid_gib=20 * res ** 3 / 2 ** 30)
     del vol, before
     torch.cuda.empty_cache()
@@ -3187,6 +3194,8 @@ def phase_scorp2d(args, device):
                             float(scene.cameras_extent), args.seed, device)
     print(f"  contracted {t1024['res']}^3 grid from {t1024['views']} maps of "
           f"{t1024['width']}x{t1024['height']}: {t1024['fuse_ms_per_view']:.3f} ms a view, "
+          f"live bricks {t1024['live_bricks']} of {t1024['bricks']} (share "
+          f"{t1024['live_share']:.4f}), "
           f"observed voxels {t1024['observed']:.6f}, peak {t1024['peak_gib']:.2f} GiB (grid "
           f"{t1024['grid_gib']:.2f} GiB); {t1024['blocks']} blocks of {TSDF_BLOCK} voxels "
           f"({t1024['near_blocks']} around seen voxels), {t1024['updated']} updated by the "
@@ -3194,6 +3203,10 @@ def phase_scorp2d(args, device):
           f"{t1024['launches']}")
     check(t1024["launches"] == t1024["views"] == n_train and t1024["other_launches"] == 0,
           f"one T launch per view into the 1024^3 grid ({n_train}), no other kernel")
+    check(t1024["bricks"] == n_train * t1024["grid_bricks"]
+          and 0 < t1024["live_bricks"] <= t1024["bricks"],
+          f"T's brick counters: {t1024['grid_bricks']} bricks a launch, of which "
+          f"{t1024['live_bricks']} live over {n_train} views (tsdf_fuse.bricks, .live_bricks())")
     check(t1024["near_blocks"] == TSDF_BLOCKS // 2 and t1024["updated"] > 1000,
           f"the last view updates {t1024['updated']} of the compared voxels (> 1000)")
     check(t1024["weights_equal"] and t1024["bit_equal"],

@@ -48,7 +48,7 @@ SIGNATURES = {
         "scorp_surfel_composite_train": "ppppii" + "p" * 12,
     },
     "surfel_backward": {"scorp_surfel_backward": "p" * 17 + "iip"},
-    "tsdf_fuse": {"scorp_tsdf_fuse": "ii" + "d" * 4 + "p" * 5 + "ii" + "ff" + "p" * 4},
+    "tsdf_fuse": {"scorp_tsdf_fuse": "iiii" + "d" * 4 + "p" * 5 + "ii" + "ff" + "p" * 5},
 }
 
 _ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "z": ctypes.c_size_t,

@@ -7,12 +7,15 @@ coordinates the fusion built before the grid object, for both grid kinds;
 plain reference (`bench_port/reference/tsdf.py`) on maps that `render2d`'s
 plain path renders from seeded random surfels; the reference with its voxel
 centres in float32 (the benchmark's control) failing the cell's limits;
-the counters, the span, the readers and the work model; and the
-`room2dgs-mesh-fuse` cell run whole at a tiny size in a fresh process. On
-the card (marked `cuda`, skipped elsewhere): T against the plain update
-bit for bit at 64^3 and 256^3 for both kinds and at 1024^3 on seeded blocks
-of voxels, its launch count, and the device memory of a 1024^3 grid. On a
-GPU machine:
+the counters, the span, T's brick layout, the readers and the work model;
+and the `room2dgs-mesh-fuse` cell run whole at a tiny size in a fresh
+process. On the card (marked `cuda`, skipped elsewhere): T against the
+plain update bit for bit at 64^3 and 256^3 for both kinds, over the whole
+grid after three views for 102 seeded poses a kind at 37^3 to 256^3 (the
+brick cull's hard cases among them), at 1024^3 on seeded blocks of voxels
+and, for two of the room's views, over the whole contracted 1024^3 grid;
+its launch and brick counters, and the device memory of a 1024^3 grid. On
+a GPU machine:
 
     python -m pytest tests/test_torch_tsdf_fuse.py -q
 """
@@ -23,6 +26,7 @@ import math
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -30,14 +34,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from bench_port import room
+from bench_port.loops.fuse2d import train_views
 from bench_port.reference import camera as ref_camera
 from bench_port.reference import tsdf as ref_tsdf
 from scorp_tpu_torch.core.camera import make_camera
+from scorp_tpu_torch.ops import tsdf as tsdf_ops
 from scorp_tpu_torch.ops.tsdf import tsdf_fuse
 from scorp_tpu_torch.pipeline import mesh
 from scorp_tpu_torch.pipeline.mesh import TsdfVolume, _voxel_centres
 from scorp_tpu_torch.render2d import render2d
-from scorp_tpu_torch.train import state_from_numpy
+from scorp_tpu_torch.scene.dataset_readers import nerfpp_norm
+from scorp_tpu_torch.train import GaussianState, state_from_numpy
 from scorp_tpu_torch.utils import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -221,14 +229,32 @@ def test_grids_and_kinds():
 
 
 def test_counters_on_the_cpu(views):
-    """The CPU path launches no kernel: `tsdf_fuse.launches` stays put while
-    the plain update fuses every view."""
+    """The CPU path launches no kernel: `tsdf_fuse.launches` and `.bricks`
+    stay put while the plain update fuses every view, and no device count
+    of live bricks is made."""
     v = _volume("contracted", res=16)
-    launches = tsdf_fuse.launches
+    launches, bricks = tsdf_fuse.launches, tsdf_fuse.bricks
     for depth, color, cam, _ in views:
         v.integrate(depth, color, cam)
     assert float(v.weight.max()) == 3.0
-    assert tsdf_fuse.launches == launches
+    assert (tsdf_fuse.launches, tsdf_fuse.bricks) == (launches, bricks)
+    assert tsdf_fuse.live_bricks() == 0
+
+
+@pytest.mark.parametrize("res, lattice_log2, bricks", [
+    (37, 0, 5 ** 3), (100, 0, 13 ** 3), (128, 0, 16 ** 3), (256, 1, 32 ** 3),
+    (512, 2, 64 ** 3), (1024, 2, 128 ** 3)])
+def test_brick_layout(res, lattice_log2, bricks):
+    """8^3 bricks, partial at the far faces; a block tests 4^3 of them
+    where that still makes MIN_BLOCKS blocks, else 2^3 or one, and no grid
+    up to 1024^3 makes more than ~10^5 blocks."""
+    brick_log2, lg, n = tsdf_ops.brick_layout(res)
+    assert (brick_log2, lg, n) == (3, lattice_log2, bricks)
+    side = -(-res // 8)
+    blocks = (-(-side // (1 << lg))) ** 3
+    assert blocks <= 1 << 17
+    assert blocks >= tsdf_ops.MIN_BLOCKS or lg == 0
+    assert (1 << lg) ** 3 <= 64  # a block's 64 threads test one brick each
 
 
 def test_wrapper_refuses_cpu_tensors(views):
@@ -477,3 +503,233 @@ def test_kernel_at_1024_on_seeded_blocks(dev, kind):
         assert torch.equal(v.tsdf[s:s + block], t1), s
         assert torch.equal(v.colors[s:s + block], c1), s
     assert counted > 1000
+
+
+# ------------------------------------------------ card: the brick cull over whole grids
+
+# (R, seeded poses) a kind: 102 poses a kind, R not a multiple of the brick
+# (37, 100) and powers of two (128, 256)
+WHOLE_GRIDS = [(37, 40), (100, 30), (128, 20), (256, 12)]
+POSE_MODES = ("inside", "face", "axis", "corner", "shell", "random")
+
+
+class _CentreMemo:
+    """`_voxel_centres` made once a block: `integrate_plain` as it is, its
+    centres not made again for each view."""
+
+    def __init__(self):
+        self.cache, self.real = {}, mesh._voxel_centres
+
+    def __call__(self, kind, res, base, scale, start, stop):
+        key = (kind, res, tuple(np.asarray(base, np.float64)), scale, start, stop)
+        if key not in self.cache:
+            self.cache[key] = self.real(kind, res, base, scale, start, stop)
+        return self.cache[key]
+
+
+def _rotation(rng, axis: bool) -> np.ndarray:
+    """A camera-to-world rotation: random, or along a signed axis."""
+    if axis:
+        r = np.zeros((3, 3))
+        r[np.arange(3), rng.permutation(3)] = rng.choice([-1.0, 1.0], 3)
+        if np.linalg.det(r) < 0:
+            r[:, 0] *= -1
+        return r
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    return q * np.sign(np.linalg.det(q))
+
+
+def _stress_case(kind: str, res: int, case: int, dev):
+    """A grid and three views of one seeded pose of POSE_MODES[case % 6]:
+    the camera inside a brick, near the grid's faces (contracted: on the
+    unit sphere), looking along an axis, at a brick corner with side planes
+    through brick corners, on the 1.98 shell (bounded: far outside), or
+    anywhere; depth_trunc from 2 voxels to far beyond the grid; depth maps
+    just under depth_trunc (the farthest reach), uniform, or both."""
+    rng = np.random.default_rng([res, case, kind == "contracted"])
+    mode = POSE_MODES[case % len(POSE_MODES)]
+    base = rng.normal(size=3)
+    bs = 8  # tsdf_ops.brick_layout's brick
+    if kind == "bounded":
+        scale = float(rng.uniform(0.005, 0.05))  # the voxel size
+        extent = res * scale
+
+        def point(ijk):  # grid coordinates (voxel units from the origin) to world
+            return base + np.asarray(ijk, np.float64) * scale
+    else:
+        scale = float(rng.uniform(0.5, 2.0))  # the scene's radius
+        extent = 4.0 * scale
+
+        def point(ijk):  # through the contraction
+            c = np.asarray(ijk, np.float64)[None] * (4.0 / res) - 2.0
+            return base + mesh.uncontract(c)[0] * scale
+    axis = mode in ("axis", "corner") or rng.uniform() < 0.2
+    w, h = int(rng.integers(40, 160)), int(rng.integers(30, 120))
+    fovx = float(rng.uniform(0.4, 2.2))
+    if mode == "inside":
+        eye = point((rng.integers(0, -(-res // bs), 3) + rng.uniform(0.2, 0.8, 3)) * bs)
+    elif mode == "face":
+        if kind == "bounded":
+            g = rng.uniform(0, res, 3)
+            g[rng.integers(3)] = rng.choice([0.0, res]) + rng.uniform(-1.0, 1.0)
+            eye = point(g)
+        else:
+            d = rng.normal(size=3)
+            eye = base + d / np.linalg.norm(d) * scale * rng.uniform(0.98, 1.02)
+    elif mode == "corner":
+        # a brick corner (inside the unit ball, where the contraction is the
+        # identity), side planes through the corners m bricks across, n along
+        lo = res // 2 - res // 8 if kind == "contracted" else 0
+        hi = res // 2 + res // 8 if kind == "contracted" else res
+        eye = point(rng.integers(-(-lo // bs), hi // bs + 1, 3) * bs)
+        m, n = int(rng.integers(1, 4)), int(rng.integers(1, 4))
+        fovx = 2.0 * math.atan(m / n)
+    elif mode == "shell":
+        d = rng.normal(size=3)
+        far = 1.0 / (2.0 - 1.98) if kind == "contracted" else 3.0 * extent / scale
+        eye = base + d / np.linalg.norm(d) * scale * far * rng.uniform(0.9, 1.1)
+    else:
+        eye = point(rng.uniform(-0.5, 1.5, 3) * res)
+    fovy = 2.0 * math.atan(math.tan(fovx / 2) * h / w * rng.uniform(0.8, 1.25))
+    voxel = scale if kind == "bounded" else 4.0 / res * scale
+    sdf_trunc = float(voxel * rng.choice([0.5, 4.0, 20.0]))
+    depth_trunc = float(rng.choice([2.0 * voxel, 0.3 * extent, 3.0 * extent, 1e6]))
+    rot = _rotation(rng, axis)
+    views = []
+    for _ in range(3):
+        r = _rotation(rng, False) if mode == "random" and not axis else rot
+        c = eye + rng.normal(size=3) * 0.2 * voxel
+        cam = make_camera(r, -r.T @ c, fovx, fovy, w, h, device=dev)
+        reach = np.nextafter(np.float32(depth_trunc), np.float32(0))
+        kind_of_map = rng.integers(3)
+        uniform = rng.uniform(0, float(reach), (h, w))
+        depth = (np.full((h, w), reach) if kind_of_map == 0 else uniform if kind_of_map == 1
+                 else np.where(rng.uniform(size=(h, w)) < 0.5, reach, uniform))
+        views.append((torch.as_tensor(depth, dtype=torch.float32, device=dev),
+                      torch.as_tensor(rng.uniform(size=(3, h, w)), dtype=torch.float32,
+                                      device=dev), cam))
+    grid = dict(base=base, scale=scale, sdf_trunc=sdf_trunc, depth_trunc=depth_trunc)
+    return mode, grid, views
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res, poses", WHOLE_GRIDS)
+@pytest.mark.parametrize("kind", ["bounded", "contracted"])
+def test_kernel_equals_the_plain_update_on_the_whole_grid(dev, kind, res, poses, monkeypatch):
+    """T against `integrate_plain` over every voxel of the grid, after each
+    of three views in a row (weights up to 3): a brick the cull drops with
+    one voxel the plain update changes fails here."""
+    updated, live_share = 0, []
+    for case in range(poses):
+        memo = _CentreMemo()
+        monkeypatch.setattr(mesh, "_voxel_centres", memo)
+        mode, grid, views = _stress_case(kind, res, case, dev)
+        got = TsdfVolume(kind, res, **grid, device=dev)
+        want = TsdfVolume(kind, res, **grid, device=dev)
+        bricks, live = tsdf_fuse.bricks, tsdf_fuse.live_bricks()
+        for n, (depth, color, cam) in enumerate(views):
+            got.integrate(depth, color, cam)
+            want.integrate_plain(depth, color, cam)
+            for name in ("weight", "tsdf", "colors"):
+                assert torch.equal(getattr(got, name), getattr(want, name)), \
+                    (case, mode, n, name, grid)
+        live_share.append((tsdf_fuse.live_bricks() - live) / (tsdf_fuse.bricks - bricks))
+        updated += int((want.weight > 0).sum())
+    # the cases update voxels, and the cull keeps most bricks in some and
+    # drops most in others
+    assert updated > 1000 and min(live_share) < 0.1 < max(live_share), live_share
+
+
+def _room():
+    """`room2dgs-mesh-fuse`'s configuration, poses, train views and grid
+    radius (the nerf++ radius of the train cameras)."""
+    with open(os.path.join(ROOT, "bench_port", "configs",
+                           "mipnerf360-room-2dgs-mesh1024.json")) as f:
+        cfg = json.load(f)
+    poses = room.poses(cfg)
+    views = train_views(cfg)
+    radius = nerfpp_norm([types.SimpleNamespace(R=poses[v]["R"], T=poses[v]["T"])
+                          for v in views])["radius"]
+    return cfg, poses, views, radius
+
+
+def _room_views(dev, n: int = 2):
+    """n train views of the room: their depth and colour maps rendered by
+    `render2d` from the state of seed 1, and the program's cameras."""
+    cfg, poses, views, _ = _room()
+    params, _, alive, cap = room.state_tensors(cfg, 1, dev)
+    zeros = torch.zeros(cap, device=dev)
+    state = GaussianState(params, alive, zeros, zeros.clone(), zeros.clone())
+    bg = torch.tensor(cfg["mesh"]["bg"], dtype=torch.float32, device=dev)
+    out = []
+    for v in views[::len(views) // n][:n]:
+        p = poses[v]
+        cam = make_camera(p["R"], p["T"], p["fovx"], p["fovy"], cfg["width"], cfg["height"],
+                          device=dev)
+        maps = render2d(cam, state, bg, sh_degree=cfg["sh_degree"],
+                        depth_ratio=float(cfg["mesh"]["depth_ratio"]))
+        out.append((maps["render_depth"][0].contiguous().clone(),
+                    maps["render"].contiguous().clone(), cam))
+    return out
+
+
+@pytest.mark.cuda
+def test_kernel_on_two_room_views_over_the_whole_1024_grid(dev, monkeypatch):
+    """Two of the room's views fused by T into the contracted 1024^3 grid of
+    `room2dgs-mesh-fuse` and by `integrate_plain` (its PLAIN_BLOCK blocks,
+    the centres made once, in parallel): every voxel bit for bit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cfg, _, _, radius = _room()
+    views = _room_views(dev)
+    m = cfg["mesh"]
+    args = (m["center"], radius, int(m["mesh_res"]), float(m["sdf_trunc_voxels"]),
+            float(m["depth_trunc_radii"]) * radius)
+    got = TsdfVolume.contracted(*args, device=dev)
+    want = TsdfVolume.contracted(*args, device=dev)
+    memo = _CentreMemo()
+    blocks = range(0, want.voxels, mesh.PLAIN_BLOCK)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda s: memo(want.kind, want.res, want.base, want.scale, s,
+                                     min(s + mesh.PLAIN_BLOCK, want.voxels)), blocks))
+    monkeypatch.setattr(mesh, "_voxel_centres", memo)
+    for depth, color, cam in views:
+        got.integrate(depth, color, cam)
+        want.integrate_plain(depth, color, cam)
+    torch.cuda.synchronize(dev)
+    assert int((want.weight > 0).sum()) > 10 ** 5
+    for name in ("weight", "tsdf", "colors"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_live_brick_counters(dev):
+    """`tsdf_fuse.bricks` grows by the grid's bricks a launch and
+    `launches` by one; the live share is 1 where the camera sees the whole
+    of a small bounded grid within reach, and under 0.1 for the room's
+    cameras in a contracted 256^3 grid at the cell's truncations."""
+    v = TsdfVolume("bounded", 32, CENTER - 0.5, 1.0 / 32, 0.1, 1e6, device=dev)
+    cam = make_camera(np.eye(3), -(CENTER - np.array([0.0, 0.0, 4.0])), 1.6, 1.6, 64, 64,
+                      device=dev)
+    depth = torch.full((64, 64), 4.0, device=dev)
+    color = torch.rand(3, 64, 64, device=dev)
+    launches, bricks, live = tsdf_fuse.launches, tsdf_fuse.bricks, tsdf_fuse.live_bricks()
+    v.integrate(depth, color, cam)
+    assert (tsdf_fuse.launches - launches, tsdf_fuse.bricks - bricks) == (1, 4 ** 3)
+    assert tsdf_fuse.live_bricks() - live == 4 ** 3
+    assert int((v.weight > 0).sum()) > 0
+
+    cfg, poses, views, radius = _room()
+    m = cfg["mesh"]
+    v = TsdfVolume.contracted(m["center"], radius, 256, float(m["sdf_trunc_voxels"]),
+                              float(m["depth_trunc_radii"]) * radius, device=dev)
+    w, h = cfg["width"], cfg["height"]
+    depth, color = torch.zeros(h, w, device=dev), torch.zeros(3, h, w, device=dev)
+    for name in views[::50]:
+        p = poses[name]
+        cam = make_camera(p["R"], p["T"], p["fovx"], p["fovy"], w, h, device=dev)
+        bricks, live = tsdf_fuse.bricks, tsdf_fuse.live_bricks()
+        v.integrate(depth, color, cam)
+        assert tsdf_fuse.bricks - bricks == 32 ** 3
+        share = (tsdf_fuse.live_bricks() - live) / 32 ** 3
+        assert 0.0 < share < 0.1, (name, share)
