@@ -1,0 +1,12 @@
+"""Mesh layer (pipeline/mesh.py TsdfVolume.triangulate): the device's busy ms
+a triangulation inside the program's `mesh.triangulate` span (kernel M and
+its count read on the card), over the triangulations of a traced run of the
+export loop (the count of the loop's own `unit.extract` label)."""
+
+
+def read(ctx):
+    labels = ctx["profile"].get("labels", {})
+    t, frames = labels.get("mesh.triangulate"), labels.get("unit.extract", {}).get("count", 0)
+    if ctx["loop"] != "extract2d" or t is None or not frames:
+        return None
+    return 1e3 * t["device_busy_s"] / frames

@@ -173,14 +173,22 @@ Phases, in order (any failure exits non-zero):
      one K1, sort, K4 and T per view; the card's TSDF grid, fused by T,
      against tsdf_fuse on the CPU from the same depth and colour maps,
      weights equal, tsdf and colours within 1e-5, and whether the grids
-     are equal bit for bit; fuse.ply and fuse_post.ply non-empty; the
-     seconds of fusion, marching cubes and post-processing and the peak
+     are equal bit for bit; then one marching cubes M of the card's grid
+     on the card, its mesh bit-equal to the plain marching cubes of the
+     same grid on the host; fuse.ply and fuse_post.ply non-empty; the
+     seconds of fusion, triangulation and post-processing and the peak
      device memory printed); then the same maps fused by T into a
      contracted 1024^3 `TsdfVolume`, the unbounded route's grid
      (`check_tsdf_1024`: one T launch per view; seeded blocks of voxels,
      half around voxels the earlier views saw, bit-equal to the plain
      `_tsdf_update` of their values before the last view; the device
-     memory peak under the grid and 2 GB).
+     memory peak under the grid and 2 GB), and triangulated by M with the
+     uncontraction on the card (`check_mc_contracted`: one M launch; the
+     device peak over the grid under the mesh and 2 GB; seeded slabs of
+     planes of the 1024^3 grid and the whole of a contracted 256^3 grid from
+     the same maps at a quarter of the radius, many of its vertices outside
+     the unit ball, bit-equal to the plain marching cubes uncontracted on
+     the host).
   14. full width, the scale-out and what consumes renders (`phase_dp`), on
      phase 12's scene: `parallel.dp_train_step` for DP_STEPS steps of
      DP_BATCH train cameras in a one-rank NCCL group (one K1, sort, K2 and K3
@@ -2102,6 +2110,7 @@ def _wrappers() -> dict:
     from scorp_tpu_torch.ops.raster.surfel_composite import (
         surfel_composite, surfel_composite_train,
     )
+    from scorp_tpu_torch.ops.marching_cubes import marching_cubes
     from scorp_tpu_torch.ops.tsdf import tsdf_fuse
 
     return {"preprocess": preprocess_kernel, "surfel_preprocess": preprocess_surfel_kernel,
@@ -2109,12 +2118,14 @@ def _wrappers() -> dict:
             "composite": composite, "backward": composite_backward,
             "surfel_composite": surfel_composite,
             "surfel_composite_train": surfel_composite_train,
-            "surfel_backward": surfel_backward, "tsdf_fuse": tsdf_fuse}
+            "surfel_backward": surfel_backward, "tsdf_fuse": tsdf_fuse,
+            "marching_cubes": marching_cubes}
 
 
 def kernel_launches() -> dict:
     """Every kernel wrapper's launch count (both fused preprocesses, K1,
-    the sort, K2-K6, the TSDF fusion T)."""
+    the sort, K2-K6, the TSDF fusion T, marching cubes M: one a
+    triangulation)."""
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
@@ -2804,6 +2815,12 @@ def mesh_ply_counts(path: str) -> tuple[int, int]:
 TSDF_RES = 1024       # extract_mesh --unbounded --mesh_res 1024, the 2DGS route for unbounded scenes
 TSDF_BLOCK = 1 << 16  # voxels in each block held against the plain update
 TSDF_BLOCKS = 8       # seeded blocks: half around voxels the earlier views saw, half uniform
+MC_SLAB = 9           # corner planes of each seeded slab M is held on in the 1024^3 grid
+MC_SLABS = 4          # seeded slabs, drawn among the planes that hold observed voxels
+MC_WHOLE_RES = 256    # the contracted grid M is held on whole, from the same maps
+# that grid's radius, a share of the scene's: the scene's surfaces then lie
+# outside the unit ball too, where the uncontraction divides
+MC_WHOLE_RADIUS = 0.25
 
 
 def check_tsdf_1024(maps: dict, cameras, radius: float, seed: int, device) -> dict:
@@ -2815,7 +2832,8 @@ def check_tsdf_1024(maps: dict, cameras, radius: float, seed: int, device) -> di
     `tsdf_fuse.live_bricks()`) from their values before; seeded blocks of
     TSDF_BLOCK voxels, half of them around voxels the
     earlier views saw, held against the plain `_tsdf_update` of their
-    values before the last view, weights, tsdf and colours bit for bit."""
+    values before the last view, weights, tsdf and colours bit for bit.
+    Then kernel M on that grid (`check_mc_contracted`)."""
     import torch
 
     from scorp_tpu_torch.ops.tsdf import brick_layout, tsdf_fuse
@@ -2886,8 +2904,90 @@ def check_tsdf_1024(maps: dict, cameras, radius: float, seed: int, device) -> di
                live_bricks=live, live_share=live / max(bricks, 1),
                fuse_ms_per_view=1e3 * fuse_s / len(views),
                peak_gib=peak / 2 ** 30, grid_gib=20 * res ** 3 / 2 ** 30)
-    del vol, before
+    del before
+    out["mc"] = check_mc_contracted(vol, views, seed, device)
+    del vol
     torch.cuda.empty_cache()
+    return out
+
+
+def same_mesh(got, want) -> bool:
+    """Two (vertices, faces, colours) triples equal bit for bit, dtypes and
+    shapes included."""
+    return all(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+               for a, b in zip(got, want))
+
+
+def check_mc_contracted(vol, views, seed: int, device) -> dict:
+    """Kernel M on the unbounded route's contracted grids, with the float64
+    uncontraction on the card: `vol.triangulate()` of the whole 1024^3 grid
+    (M's launches counted from 0: one; its device peak over the grid);
+    MC_SLABS seeded slabs of MC_SLAB corner planes among the planes that hold
+    observed voxels, M on views of the grid's tensors with the grid's
+    contraction against the plain marching cubes of the host copies of the
+    same planes, uncontracted on the host as `TsdfVolume.triangulate` does
+    on the CPU; and the same maps fused into a contracted MC_WHOLE_RES^3
+    grid at MC_WHOLE_RADIUS of the scene's radius, its `triangulate()`
+    against the plain path on its whole host grid.
+    Every comparison bit for bit: vertices, faces, colours."""
+    import torch
+
+    from scorp_tpu_torch.ops.marching_cubes import marching_cubes as mc_kernel
+    from scorp_tpu_torch.pipeline import marching_cubes, mesh
+
+    res = vol.res
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    t = time.perf_counter()
+    verts, faces, _ = vol.triangulate()
+    tri_s = time.perf_counter() - t
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() - before
+    mesh_bytes = 48 * len(verts) + 24 * len(faces)
+    out = dict(launches=launches["marching_cubes"],
+               other_launches=sum(launches.values()) - launches["marching_cubes"],
+               vertices=len(verts), faces=len(faces), triangulate_s=tri_s,
+               peak_over_grid_gib=peak / 2 ** 30, mesh_gib=mesh_bytes / 2 ** 30)
+    del verts, faces
+    plane = res * res
+    live = (vol.weight.view(res, res, res) > 0).flatten(1).any(1).nonzero()[:, 0].cpu().numpy()
+    live = live[live <= res - MC_SLAB]
+    rng = np.random.default_rng(seed)
+    starts = sorted(int(x) for x in rng.choice(live, min(MC_SLABS, len(live)), replace=False))
+    scale, centre = vol.scale, vol.base
+    slabs, slabs_equal = [], True
+    for x0 in starts:
+        sl = slice(x0 * plane, (x0 + MC_SLAB) * plane)
+        shape = (MC_SLAB, res, res)
+        origin = np.array([-2.0 + x0 * vol.step, -2.0, -2.0])
+        got = [a.cpu().numpy() for a in mc_kernel(
+            vol.tsdf[sl], vol.weight[sl], vol.colors[sl], shape, origin=origin,
+            voxel_size=vol.step, contract=(scale, centre))]
+        tsdf, weight = (a[sl].cpu().numpy().reshape(shape) for a in (vol.tsdf, vol.weight))
+        wv, wf, wc = marching_cubes.marching_cubes(
+            tsdf, weight, origin, vol.step, vol.colors[sl].cpu().numpy().reshape(shape + (3,)))
+        want = (mesh.uncontract(wv) * scale + centre, wf, wc)
+        outer = int((np.linalg.norm(wv, axis=-1) > 1.0).sum())
+        slabs.append(dict(x0=x0, vertices=len(want[0]), faces=len(want[1]), outer=outer))
+        slabs_equal &= same_mesh(got, want)
+    out.update(slabs=slabs, slabs_equal=slabs_equal)
+    small = mesh.TsdfVolume.contracted(centre, scale * MC_WHOLE_RADIUS, MC_WHOLE_RES, 4.0,
+                                       vol.depth_trunc, device)
+    for depth, color, cam in views:
+        small.integrate(depth, color, cam)
+    reset_launches()
+    got = small.triangulate()
+    small_launches = kernel_launches()["marching_cubes"]
+    tsdf, weight, colors = small.grids()
+    wv, wf, wc = marching_cubes.marching_cubes(tsdf, weight, np.full(3, -2.0), small.step,
+                                               colors)
+    want = (mesh.uncontract(wv) * small.scale + small.base, wf, wc)
+    out.update(whole_res=MC_WHOLE_RES, whole_vertices=len(want[0]), whole_faces=len(want[1]),
+               whole_outer=int((np.linalg.norm(wv, axis=-1) > 1.0).sum()),
+               whole_launches=small_launches, whole_equal=same_mesh(got, want))
     return out
 
 
@@ -3113,8 +3213,9 @@ def phase_scorp2d(args, device):
     # 5. mesh extraction at extract_mesh's defaults (bounded, mesh_res 256)
     times = {"render_s": 0.0}
     grid, recorded = {}, {}
-    real_fuse, real_mc = mesh.tsdf_fuse, marching_cubes.marching_cubes
+    real_fuse, real_tri = mesh.fuse_bounded, mesh.TsdfVolume.triangulate
     real_post = extract_mesh.post_process_mesh
+    triangulated = {}
 
     def checked_fuse(render_fn, cameras, *a, **kw):
         maps = {}
@@ -3132,19 +3233,34 @@ def phase_scorp2d(args, device):
 
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = real_fuse(recording, cameras, *a, **kw)
+        volume = real_fuse(recording, cameras, *a, **kw)
         times["fuse_s"] = time.perf_counter() - t
         # the same fusion on the CPU from the card's depth and colour maps
         t = time.perf_counter()
         ref = real_fuse(lambda cam: {k: v.cpu() for k, v in maps[cam.image_name].items()},
-                        cameras, *a, **{**kw, "device": "cpu"})
+                        cameras, *a, **{**kw, "device": "cpu"}).grids()
         times["fuse_cpu_s"] = time.perf_counter() - t
+        out = volume.grids()
         grid.update(res=out[0].shape[0], observed=float((out[1] > 0).mean()),
                     weights_equal=bool(np.array_equal(out[1], ref[1])),
                     bit_equal=all(np.array_equal(a, b) for a, b in zip(out[:3], ref[:3])),
                     tsdf_err=float(np.abs(out[0] - ref[0]).max()),
                     color_err=float(np.abs(out[2] - ref[2]).max()))
-        return out
+        return volume
+
+    def checked_triangulate(volume, method="marching_cubes"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = real_tri(volume, method)
+        times["triangulate_s"] = time.perf_counter() - t
+        # the host path on the card's grid: the plain marching cubes
+        t = time.perf_counter()
+        tsdf, weight, colors = volume.grids()
+        want = marching_cubes.marching_cubes(tsdf, weight, volume.base, volume.scale, colors)
+        times["triangulate_cpu_s"] = time.perf_counter() - t
+        triangulated.update(vertices=len(got[0]), faces=len(got[1]),
+                            bit_equal=same_mesh(got, want))
+        return got
 
     def timed_stage(fn, key):
         def wrapped(*a, **kw):
@@ -3154,8 +3270,8 @@ def phase_scorp2d(args, device):
             return out
         return wrapped
 
-    mesh.tsdf_fuse = checked_fuse
-    marching_cubes.marching_cubes = timed_stage(real_mc, "marching_cubes_s")
+    mesh.fuse_bounded = checked_fuse
+    mesh.TsdfVolume.triangulate = checked_triangulate
     extract_mesh.post_process_mesh = timed_stage(real_post, "post_process_s")
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -3163,18 +3279,21 @@ def phase_scorp2d(args, device):
     try:
         out_dir = extract_mesh.main(base + dev_arg)
     finally:
-        mesh.tsdf_fuse, marching_cubes.marching_cubes = real_fuse, real_mc
+        mesh.fuse_bounded, mesh.TsdfVolume.triangulate = real_fuse, real_tri
         extract_mesh.post_process_mesh = real_post
     mesh_s = time.perf_counter() - t0
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     launches["mesh"] = kernel_launches()
     check(launches["mesh"] == launches_of(surfel_preprocess=n_train, expand=n_train,
                                           sort=n_train, surfel_composite=n_train,
-                                          tsdf_fuse=n_train),
+                                          tsdf_fuse=n_train, marching_cubes=1),
           f"one fused surfel preprocess, K1, sort, K4 and TSDF fusion T per training view "
-          f"({n_train})")
+          f"({n_train}), one marching cubes M")
     check(grid["res"] == 256, f"a 256^3 grid ({grid['res'] ** 3} voxels)")
     check(grid["weights_equal"], "the card's TSDF weights equal the CPU fusion's")
+    check(triangulated["bit_equal"], f"M's mesh ({triangulated['vertices']} vertices, "
+          f"{triangulated['faces']} faces) equals the plain marching cubes of the card's grid "
+          "bit for bit")
     check(grid["tsdf_err"] <= 1e-5 and grid["color_err"] <= 1e-5,
           f"the card's tsdf and colours within 1e-5 of the CPU fusion's (max |diff| "
           f"{grid['tsdf_err']:.3g}, {grid['color_err']:.3g})")
@@ -3184,8 +3303,9 @@ def phase_scorp2d(args, device):
         check(min(counts[name]) > 0, f"{name}: {counts[name][0]} vertices, "
               f"{counts[name][1]} faces")
     print(f"  extract_mesh: {mesh_s:.3f} s; fusion {times['fuse_s']:.3f} s (of which "
-          f"{n_train} render2d {times['render_s']:.3f} s), marching cubes "
-          f"{times['marching_cubes_s']:.3f} s, post-processing {times['post_process_s']:.3f} "
+          f"{n_train} render2d {times['render_s']:.3f} s), triangulation (M, the mesh to "
+          f"host) {times['triangulate_s']:.3f} s (the plain marching cubes on the host "
+          f"{times['triangulate_cpu_s']:.3f} s), post-processing {times['post_process_s']:.3f} "
           f"s; CPU fusion {times['fuse_cpu_s']:.3f} s; peak device memory {peak_mib:.1f} MiB; "
           f"observed voxels {grid['observed']:.4f}; card grid bit-equal to the CPU's "
           f"{grid['bit_equal']}; launches {launches['mesh']}")
@@ -3215,6 +3335,32 @@ def phase_scorp2d(args, device):
     check(t1024["peak_gib"] < t1024["grid_gib"] + 2.0,
           f"the 1024^3 fusion's device memory peak {t1024['peak_gib']:.2f} GiB is under the "
           f"grid + 2 GiB: no [R^3, 3] coordinate array")
+    mc = t1024["mc"]
+    print(f"  M on the contracted {t1024['res']}^3 grid: {mc['vertices']} vertices, "
+          f"{mc['faces']} faces in {mc['triangulate_s']:.3f} s (the mesh to host included), "
+          f"device peak {mc['peak_over_grid_gib']:.3f} GiB over the grid (mesh "
+          f"{mc['mesh_gib']:.3f} GiB); slabs of {MC_SLAB} planes {mc['slabs']} bit-equal to "
+          f"the plain path, uncontracted on the host, {mc['slabs_equal']}; contracted "
+          f"{mc['whole_res']}^3 grid at {MC_WHOLE_RADIUS} of the radius from the same maps, "
+          f"{mc['whole_vertices']} vertices "
+          f"({mc['whole_outer']} outside the unit ball), {mc['whole_faces']} faces, bit-equal "
+          f"to the plain path {mc['whole_equal']}; M launches {mc['launches']}, "
+          f"{mc['whole_launches']}")
+    check(mc["launches"] == 1 and mc["other_launches"] == 0 and mc["whole_launches"] == 1,
+          "one M launch a triangulation of a contracted grid, no other kernel")
+    check(mc["faces"] > 1000 and len(mc["slabs"]) == MC_SLABS
+          and min(sl["faces"] for sl in mc["slabs"]) > 0 and mc["whole_faces"] > 1000
+          and mc["whole_outer"] > 1000,
+          f"M's 1024^3 mesh has {mc['faces']} faces, each seeded slab and the "
+          f"{mc['whole_res']}^3 mesh some, the latter {mc['whole_outer']} vertices outside the "
+          "unit ball")
+    check(mc["slabs_equal"] and mc["whole_equal"],
+          f"M with the card's uncontraction equals the plain path bit for bit on the "
+          f"{t1024['res']}^3 grid's seeded slabs and on the whole contracted "
+          f"{mc['whole_res']}^3 grid")
+    check(mc["peak_over_grid_gib"] < mc["mesh_gib"] + 2.0,
+          f"M's device peak over the 1024^3 grid, {mc['peak_over_grid_gib']:.3f} GiB, is under "
+          f"the mesh + 2 GiB")
     wall = time.perf_counter() - t_phase
     print(f"  phase wall {wall:.2f} s")
     keys = ("preprocess", "surfel_preprocess", "expand", "sort", "composite",
@@ -3222,6 +3368,7 @@ def phase_scorp2d(args, device):
     scorp2d = {k: launches["segmentation"][k] + launches["align"][k] for k in keys}
     return scorp2d, launches["mesh"], {
         "launches_by_stage": launches, "vote_ms": vote_ms, "vote_err": vote_errs,
+        "triangulated": triangulated,
         "seg_vote_err": seg_err, "selected": int(sel.sum()), "recall": recall,
         "precision": precision, "align_s": align_s, "renders": renders,
         "align_rounds": {str(k): v for k, v in sorted(rounds.items())},
@@ -4434,6 +4581,8 @@ def main(argv=None) -> int:
     from scorp_tpu_torch.ops.raster.fused_surfel_preprocess import SOURCE as S_SOURCE
     from scorp_tpu_torch.ops.raster.surfel_backward import REPLACES as K6_REPLACES
     from scorp_tpu_torch.ops.raster.surfel_backward import SOURCE as K6_SOURCE
+    from scorp_tpu_torch.ops.marching_cubes import REPLACES as M_REPLACES
+    from scorp_tpu_torch.ops.marching_cubes import SOURCE as M_SOURCE
     from scorp_tpu_torch.ops.tsdf import REPLACES as T_REPLACES
     from scorp_tpu_torch.ops.tsdf import SOURCE as T_SOURCE
     from scorp_tpu_torch.ops.raster.surfel_composite import REPLACES as K4_REPLACES
@@ -4662,6 +4811,14 @@ def main(argv=None) -> int:
          "max_abs_err": max(scorp2d["grid"]["tsdf_err"], scorp2d["grid"]["color_err"]),
          "fuse_s": scorp2d["fuse_s"], "res": scorp2d["grid"]["res"],
          "contracted_1024": scorp2d["tsdf_1024"]},
+        {"name": "M marching_cubes", "route": "cuda", "source": M_SOURCE, "replaces": M_REPLACES,
+         "launches_mesh": mesh_launches["marching_cubes"],
+         "bit_equal_to_host": scorp2d["triangulated"]["bit_equal"],
+         "triangulate_s": scorp2d["triangulate_s"],
+         "host_triangulate_s": scorp2d["triangulate_cpu_s"],
+         "vertices": scorp2d["triangulated"]["vertices"],
+         "faces": scorp2d["triangulated"]["faces"], "res": scorp2d["grid"]["res"],
+         "contracted_1024": scorp2d["tsdf_1024"]["mc"]},
     ]
     print(f"  training app: loss {train['loss_first']:.6f} -> {train['loss_last']:.6f}, "
           f"{train['wall_s']:.2f} s; train_step {step['step_ms']:.3f} ms")

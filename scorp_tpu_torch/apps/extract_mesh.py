@@ -2,8 +2,11 @@
 `scorp_tpu.apps.extract_mesh`: renders the training views through the
 port's `render2d` (K1, then the surfel compositor K4), TSDF-fuses their
 depth and colour into a `TsdfVolume` on the device (kernel T on the card),
-writes `train/ours_<iter>/fuse.ply`, then the floater-filtered
-`fuse_post.ply`.
+triangulates the grid by marching cubes on its own device (kernel M on the
+card, the vertices mapped to world coordinates there; only the mesh reaches
+the host, so `--unbounded --mesh_res 1024` fits), writes
+`train/ours_<iter>/fuse.ply`, then the floater-filtered `fuse_post.ply`
+(`post_process_mesh`, on the host).
 
 Auto knobs as the 2DGS upstream's: depth_trunc = 2 x scene radius,
 voxel_size = depth_trunc / mesh_res, sdf_trunc = 5 x voxel_size.

@@ -49,6 +49,10 @@ SIGNATURES = {
     },
     "surfel_backward": {"scorp_surfel_backward": "p" * 17 + "iip"},
     "tsdf_fuse": {"scorp_tsdf_fuse": "iiii" + "d" * 4 + "p" * 5 + "ii" + "ff" + "p" * 5},
+    "marching_cubes": {
+        "scorp_mc_count": "ppiiipppp",
+        "scorp_mc_emit": "ppiii" + "pppp" + "z" + "dddd" + "i" + "dddd" + "ppppp",
+    },
 }
 
 _ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "z": ctypes.c_size_t,

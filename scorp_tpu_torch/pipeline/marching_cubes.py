@@ -68,6 +68,8 @@ _FACES = _face_cycles()
 
 
 MAX_LOOPS = 4  # a cube holds at most 4 disjoint isosurface loops
+# cells a slab of `marching_cubes` holds: ~100 B of temporaries a cell
+SLAB_CELLS = 1 << 22
 
 
 def _case_loops(case: int) -> list[list[int]]:
@@ -137,17 +139,12 @@ def _build_tables():
 TRI_TABLE, LOOP_MASK = _build_tables()
 
 
-def marching_cubes(tsdf: np.ndarray, weight: np.ndarray, origin, voxel_size,
-                   colors: np.ndarray | None = None):
-    """Level-0 marching cubes -> (vertices, faces, vert_colors).
-
-    Same contract as `mesh.surface_nets`: grid values live at voxel centers
-    ((i + 0.5) * voxel_size + origin), cells span 8 adjacent centers,
-    weight==0 marks unobserved voxels (cells touching one are skipped).
-    Triangles wind ccw seen from the positive (outside) region.
-    """
-    observed = weight > 0
-    sdf = np.where(observed, tsdf, np.nan).astype(np.float64)
+def _slab_cells(tsdf: np.ndarray, weight: np.ndarray, x0: int, x1: int):
+    """The active cells of the cell planes x0..x1-1, from the corner planes
+    x0..x1 (one plane of halo): (cell [A, 3] in grid coordinates, case [A],
+    corner values [A, 8] in float64, inside [A, 8]), in C order."""
+    observed = weight[x0:x1 + 1] > 0
+    sdf = np.where(observed, tsdf[x0:x1 + 1], np.nan).astype(np.float64)
     r = np.array(sdf.shape)
 
     corner_vals = np.stack(
@@ -162,13 +159,38 @@ def marching_cubes(tsdf: np.ndarray, weight: np.ndarray, origin, voxel_size,
     case = (inside.astype(np.int64) << np.arange(8)).sum(axis=-1)
     active = all_obs & (case > 0) & (case < 255)
     ci, cj, ck = np.nonzero(active)
-    if len(ci) == 0:
-        return np.zeros((0, 3)), np.zeros((0, 3), np.int64), np.zeros((0, 3))
-    cases = case[ci, cj, ck]
+    cell = np.stack([ci + x0, cj, ck], axis=-1)
+    return cell, case[ci, cj, ck], corner_vals[ci, cj, ck], inside[ci, cj, ck]
 
-    cell = np.stack([ci, cj, ck], axis=-1)          # [A, 3]
-    cvals = corner_vals[ci, cj, ck]                 # [A, 8]
-    cin = inside[ci, cj, ck]                        # [A, 8]
+
+def marching_cubes(tsdf: np.ndarray, weight: np.ndarray, origin, voxel_size,
+                   colors: np.ndarray | None = None):
+    """Level-0 marching cubes -> (vertices, faces, vert_colors).
+
+    Same contract as `mesh.surface_nets`: grid values live at voxel centers
+    ((i + 0.5) * voxel_size + origin), cells span 8 adjacent centers,
+    weight==0 marks unobserved voxels (cells touching one are skipped).
+    Triangles wind ccw seen from the positive (outside) region.
+
+    The cells are found a slab of cell planes along the first axis at a time
+    (as many planes as hold SLAB_CELLS cells), each from its corner planes
+    and one plane of halo, so no array of the grid's size is built; every
+    slab split gives the same mesh bit for bit. The mesh's order:
+      * edge vertices in ascending key ((gx R1 + gy) R2 + gz) 3 + axis of
+        their edge's base corner (gx, gy, gz) in an R0 x R1 x R2 grid;
+        an edge has a vertex when it is crossed and an active cell holds it;
+      * then one centroid vertex a loop longer than 3, in active-cell order
+        (C order over cells), then loop order;
+      * faces in active-cell order, then case-table order.
+    """
+    r = np.array(tsdf.shape)
+    planes = max(1, SLAB_CELLS // max(1, int((r[1] - 1) * (r[2] - 1))))
+    slabs = [_slab_cells(tsdf, weight, x0, min(x0 + planes, r[0] - 1))
+             for x0 in range(0, r[0] - 1, planes)]
+    if not slabs or sum(len(s[1]) for s in slabs) == 0:
+        return np.zeros((0, 3)), np.zeros((0, 3), np.int64), np.zeros((0, 3))
+    cell, cases, cvals, cin = (np.concatenate(a) for a in zip(*slabs))
+    ci, cj, ck = cell.T
 
     # crossing position on every crossed edge of every active cell, in
     # grid (voxel-center-index) coordinates

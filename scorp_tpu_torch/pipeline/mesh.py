@@ -13,10 +13,16 @@ sdf_trunc 0.02 / depth_trunc 3 defaults). On the card the update is kernel
 T (`ops/tsdf.py`), one launch a view; elsewhere it is the plain
 `_tsdf_update` over blocks of voxel centres. The update is written out
 element by element (no matmul, no fused op of PyTorch's choosing), so the
-grid is the same bit for bit on the CPU and on the card. Triangulation
-defaults to marching cubes (`pipeline/marching_cubes.py`), with naive
-surface nets (one vertex per sign-change cell) kept as an alternative;
-both run on the host.
+grid is the same bit for bit on the CPU and on the card.
+
+`TsdfVolume.triangulate` makes the mesh. Marching cubes
+(`pipeline/marching_cubes.py`) runs on the grid's own device: on the card
+it is kernel M (`ops/marching_cubes.py`), which also maps the vertices to
+world coordinates there in float64, and only the mesh is copied to the
+host; on the CPU the plain function runs a slab of planes at a time. Both
+give the same mesh bit for bit, and neither builds an array of the grid's
+size. Naive surface nets (one vertex per sign-change cell), kept as an
+alternative, runs on the host over a copy of the grid.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from ..core.camera import Camera
 from ..device import resolve_device
+from ..ops.marching_cubes import marching_cubes as marching_cubes_kernel
 from ..ops.tsdf import tsdf_fuse as tsdf_fuse_kernel
 from ..utils.trace import span
 
@@ -35,6 +42,10 @@ GRID_KINDS = ("bounded", "contracted")
 # voxels a block of the plain update: ~40 f32 and int64 temporaries of
 # this length, a few hundred MB
 PLAIN_BLOCK = 1 << 20
+# counters: the vertices and faces of every mesh `TsdfVolume.triangulate`
+# made, summed over calls (host ints: on the card, kernel M's totals)
+vertices = 0
+faces = 0
 
 
 def _f32(x, dev) -> torch.Tensor:
@@ -206,10 +217,47 @@ class TsdfVolume:
 
     def grids(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(tsdf [R, R, R], weight [R, R, R], colors [R, R, R, 3]) on the
-        host, for the triangulation."""
+        host (views of the grid on the CPU, copies from any other device)."""
         shape = (self.res,) * 3
         return (self.tsdf.cpu().numpy().reshape(shape), self.weight.cpu().numpy().reshape(shape),
                 self.colors.cpu().numpy().reshape(shape + (3,)))
+
+    def triangulate(self, method: str = "marching_cubes"):
+        """The grid's mesh on the host: (vertices [V, 3] float64 in world
+        coordinates, faces [F, 3] int64, colours [V, 3] float64). Grid
+        coordinates p map to (p + 0.5) * scale + base (bounded) or to
+        uncontract((p + 0.5) * step - 2) * scale + base (contracted).
+        Marching cubes on the card is kernel M, the map included (span
+        `mesh.triangulate`), then one copy of the three arrays to page-locked
+        host memory (span `mesh.to_host`); elsewhere, and for surface nets,
+        the host functions of the module run on the grid's host arrays."""
+        global vertices, faces
+        contracted = self.kind == "contracted"
+        origin, vs = (np.full(3, -2.0), self.step) if contracted else (self.base, self.scale)
+        if method == "marching_cubes" and self.device.type == "cuda":
+            with span("mesh.triangulate"):
+                mesh = marching_cubes_kernel(
+                    self.tsdf, self.weight, self.colors, (self.res,) * 3, origin=origin,
+                    voxel_size=vs, contract=(self.scale, self.base) if contracted else None)
+            with span("mesh.to_host"):
+                # page-locked buffers from PyTorch's caching host allocator: a
+                # buffer goes back to the cache when its array is dropped, so
+                # later calls copy at the link's rate without pinning anew
+                # (a pageable copy of a room's 1024^3 mesh ran at ~1.8 GB/s)
+                host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True) for a in mesh]
+                for h, a in zip(host, mesh):
+                    h.copy_(a, non_blocking=True)
+                torch.cuda.current_stream(self.device).synchronize()
+                verts, tris, cols = (h.numpy() for h in host)
+        else:
+            with span("mesh.triangulate"):
+                tsdf, weight, colors = self.grids()
+                verts, tris, cols = _triangulate(method)(tsdf, weight, origin, vs, colors)
+                if contracted:
+                    verts = uncontract(verts) * self.scale + self.base
+        vertices += len(verts)
+        faces += len(tris)
+        return verts, tris, cols
 
 
 def _fuse(render_fn, cameras, volume: TsdfVolume) -> None:
@@ -238,10 +286,18 @@ def tsdf_fuse(
     render_fn(camera) -> dict with 'render' [3,H,W] and 'render_depth'
     [1,H,W] (tensors or arrays). Returns (tsdf [R,R,R], weights, colors
     [R,R,R,3], origin, voxel_size) on the host."""
+    volume = fuse_bounded(render_fn, cameras, center, extent, voxel_size, sdf_trunc,
+                          depth_trunc, max_resolution, device=device)
+    return (*volume.grids(), volume.base, volume.scale)
+
+
+def fuse_bounded(render_fn, cameras, center, extent, voxel_size, sdf_trunc, depth_trunc,
+                 max_resolution, device) -> TsdfVolume:
+    """`tsdf_fuse`'s grid (a `TsdfVolume` on `device`) after every view."""
     volume = TsdfVolume.bounded(center, extent, voxel_size, sdf_trunc, depth_trunc,
                                 max_resolution, device=device)
     _fuse(render_fn, cameras, volume)
-    return (*volume.grids(), volume.base, volume.scale)
+    return volume
 
 
 def surface_nets(tsdf: np.ndarray, weight: np.ndarray, origin, voxel_size,
@@ -431,11 +487,9 @@ class GaussianExtractor:
     def extract_mesh_bounded(self, center, extent, voxel_size=0.004,
                              sdf_trunc=0.02, depth_trunc=3.0, max_resolution=256,
                              method="marching_cubes"):
-        tsdf, weight, colors, origin, vs = tsdf_fuse(
-            self.render_fn, self.cameras, center, extent,
-            voxel_size, sdf_trunc, depth_trunc, max_resolution, device=self.device,
-        )
-        return _triangulate(method)(tsdf, weight, origin, vs, colors)
+        volume = fuse_bounded(self.render_fn, self.cameras, center, extent, voxel_size,
+                              sdf_trunc, depth_trunc, max_resolution, device=self.device)
+        return volume.triangulate(method)
 
     def extract_mesh_unbounded(self, center, scale_radius, resolution=256,
                                depth_trunc=1e9, method="marching_cubes"):
@@ -476,13 +530,9 @@ def tsdf_fuse_unbounded(render_fn, cameras, center, scale_radius: float,
     """TSDF fusion on a grid defined in CONTRACTED coordinates (covers the
     whole unbounded scene in a [-2, 2]^3 cube): each voxel centre
     uncontracts to world space (in float64) before projecting into the
-    depth maps."""
+    depth maps; the mesh's vertices are uncontracted likewise
+    (`TsdfVolume.triangulate`)."""
     volume = TsdfVolume.contracted(center, scale_radius, resolution, sdf_trunc_vox,
                                    depth_trunc, device=device)
     _fuse(render_fn, cameras, volume)
-    tsdf, weight, colors = volume.grids()
-    # mesh vertices come out in contracted coords; uncontract after
-    verts, faces, vcols = _triangulate(method)(tsdf, weight, np.full(3, -2.0), volume.step,
-                                               colors)
-    verts = uncontract(verts) * scale_radius + np.asarray(center)
-    return verts, faces, vcols
+    return volume.triangulate(method)

@@ -45,6 +45,15 @@ The spans, one name per stage for 3DGS and 2DGS alike; a dot nests:
   densify.round                a densification round's grow, prune, clone, split
   mesh.fuse                    pipeline/mesh.py TsdfVolume.integrate: one view's
                                TSDF update of the grid (kernel T on the card)
+  mesh.triangulate             TsdfVolume.triangulate: the grid's mesh (kernel M
+                               and its read of the totals on the card; the host
+                               functions elsewhere)
+  mesh.to_host                 TsdfVolume.triangulate on the card: the mesh's
+                               copy to host memory
+
+Counters beside the spans (host ints, summed over calls):
+`pipeline/mesh.py` `vertices` and `faces`, the meshes `triangulate` made;
+each kernel wrapper's `.launches`.
 """
 
 from __future__ import annotations
