@@ -2941,6 +2941,7 @@ def check_mc_contracted(vol, views, seed: int, device) -> dict:
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     reset_launches()
+    chunks0, active0 = mc_kernel.chunks, mc_kernel.active_chunks
     t = time.perf_counter()
     verts, faces, _ = vol.triangulate()
     tri_s = time.perf_counter() - t
@@ -2950,8 +2951,21 @@ def check_mc_contracted(vol, views, seed: int, device) -> dict:
     out = dict(launches=launches["marching_cubes"],
                other_launches=sum(launches.values()) - launches["marching_cubes"],
                vertices=len(verts), faces=len(faces), triangulate_s=tri_s,
-               peak_over_grid_gib=peak / 2 ** 30, mesh_gib=mesh_bytes / 2 ** 30)
+               peak_over_grid_gib=peak / 2 ** 30, mesh_gib=mesh_bytes / 2 ** 30,
+               chunks=mc_kernel.chunks - chunks0, active_chunks=mc_kernel.active_chunks - active0)
     del verts, faces
+
+    # M's device time by kernel (CUPTI), beside the least time of its one
+    # read of every weight at 3.35 TB/s (the grid holds no mask of
+    # unobserved voxels)
+    def whole():
+        mc_kernel(vol.tsdf, vol.weight, vol.colors, (res,) * 3, origin=np.full(3, -2.0),
+                  voxel_size=vol.step, contract=(vol.scale, vol.base))
+
+    out["kernel_ms"] = {name: kernel_ms(whole, name, reps=5, per_call=n)
+                        for name, n in (("mc_cells_count", 1), ("mc_verts", 2),
+                                        ("mc_cells_emit", 1))}
+    out["weight_read_floor_ms"] = 1e3 * 4 * res ** 3 / 3.35e12
     plane = res * res
     live = (vol.weight.view(res, res, res) > 0).flatten(1).any(1).nonzero()[:, 0].cpu().numpy()
     live = live[live <= res - MC_SLAB]
@@ -3336,10 +3350,16 @@ def phase_scorp2d(args, device):
           f"the 1024^3 fusion's device memory peak {t1024['peak_gib']:.2f} GiB is under the "
           f"grid + 2 GiB: no [R^3, 3] coordinate array")
     mc = t1024["mc"]
+    m_ms = sum(mc["kernel_ms"].values())
     print(f"  M on the contracted {t1024['res']}^3 grid: {mc['vertices']} vertices, "
           f"{mc['faces']} faces in {mc['triangulate_s']:.3f} s (the mesh to host included), "
           f"device peak {mc['peak_over_grid_gib']:.3f} GiB over the grid (mesh "
-          f"{mc['mesh_gib']:.3f} GiB); slabs of {MC_SLAB} planes {mc['slabs']} bit-equal to "
+          f"{mc['mesh_gib']:.3f} GiB); chunks visited by the later passes "
+          f"{mc['active_chunks']} of {mc['chunks']} (share "
+          f"{mc['active_chunks'] / max(mc['chunks'], 1):.4f}, marching_cubes.active_chunks / "
+          f".chunks); M {m_ms:.3f} ms CUPTI ({', '.join(f'{k} {v:.3f}' for k, v in mc['kernel_ms'].items())}) "
+          f"against {mc['weight_read_floor_ms']:.3f} ms, every weight read once at 3.35 TB/s; "
+          f"slabs of {MC_SLAB} planes {mc['slabs']} bit-equal to "
           f"the plain path, uncontracted on the host, {mc['slabs_equal']}; contracted "
           f"{mc['whole_res']}^3 grid at {MC_WHOLE_RADIUS} of the radius from the same maps, "
           f"{mc['whole_vertices']} vertices "
@@ -3358,6 +3378,10 @@ def phase_scorp2d(args, device):
           f"M with the card's uncontraction equals the plain path bit for bit on the "
           f"{t1024['res']}^3 grid's seeded slabs and on the whole contracted "
           f"{mc['whole_res']}^3 grid")
+    check(mc["chunks"] == t1024["res"] ** 2 * -(-t1024["res"] // 32)
+          and 0 < mc["active_chunks"] <= mc["chunks"],
+          f"M's chunk counters: {mc['chunks']} chunks of the grid, {mc['active_chunks']} "
+          "visited by the later passes")
     check(mc["peak_over_grid_gib"] < mc["mesh_gib"] + 2.0,
           f"M's device peak over the 1024^3 grid, {mc['peak_over_grid_gib']:.3f} GiB, is under "
           f"the mesh + 2 GiB")

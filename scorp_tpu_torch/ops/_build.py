@@ -50,8 +50,8 @@ SIGNATURES = {
     "surfel_backward": {"scorp_surfel_backward": "p" * 17 + "iip"},
     "tsdf_fuse": {"scorp_tsdf_fuse": "iiii" + "d" * 4 + "p" * 5 + "ii" + "ff" + "p" * 5},
     "marching_cubes": {
-        "scorp_mc_count": "ppiiipppp",
-        "scorp_mc_emit": "ppiii" + "pppp" + "z" + "dddd" + "i" + "dddd" + "ppppp",
+        "scorp_mc_count": "ppiii" + "p" * 4,
+        "scorp_mc_emit": "ppiii" + "p" * 4 + "zzz" + "dddd" + "i" + "dddd" + "p" * 5,
     },
 }
 

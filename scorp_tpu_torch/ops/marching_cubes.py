@@ -7,14 +7,21 @@ and raises for any other device: `TsdfVolume.triangulate` runs the plain
 function, a slab of planes at a time, on the CPU.
 
 The case tables are the Python module's `TRI_TABLE`, `LOOP_MASK` and
-`EDGE_BASE`, uploaded once a device. A call counts (steps 1-2 of the
-kernel), scans the row counts on the device, reads the three totals to the
-host (its one synchronisation), allocates the mesh to size and writes it
-(steps 3-4). Nothing of the grid is kept between calls.
+`EDGE_BASE`, uploaded once a device. A call runs the count pass (one
+launch, every weight read once), scans the row counts on the device, reads
+the totals to the host (its one synchronisation), allocates the mesh and
+the chunk lists to size and runs the list, vertex and emit passes (three
+launches) over the 32-corner chunks near the surface only. Nothing of the
+grid is kept between calls.
 
-Counter: `marching_cubes.launches` counts the triangulations launched on
-the card (four kernel launches each), after the first launch succeeded: a
-grid under two voxels a side launches nothing and counts nothing.
+Counters (host ints, summed over calls): `marching_cubes.launches` counts
+the triangulations launched on the card, after the count pass launched
+without error: a grid under two voxels a side launches nothing and counts
+nothing. `marching_cubes.chunks` adds the 32-corner chunks of each grid
+launched on (NX NY ceil(NZ / 32)), `marching_cubes.active_chunks` the chunks
+the later passes visited (with an edge vertex or an active cell), from the
+same read of the totals: their ratio is the share of the grid the later
+passes engage.
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ REPLACES = ("none: the JAX package triangulates on the host with numpy "
 SOURCE = "scorp_tpu_torch/csrc/marching_cubes.cu"
 
 MAX_TRIS = 8  # csrc/marching_cubes.cu kMaxTris
+# the count pass's tile (csrc/marching_cubes.cu kTX, kTY, kTZ): corner
+# planes, rows and corners along z
+TILE = (8, 14, 128)
+# the count pass's row counters, in csrc/marching_cubes.cu's order
+COUNTS = ("vertices", "vertex_chunks", "centroids", "faces", "cell_chunks")
 
 _tables: dict[torch.device, torch.Tensor] = {}
 
@@ -79,41 +91,50 @@ def marching_cubes(tsdf: torch.Tensor, weight: torch.Tensor, colors: torch.Tenso
     if min(nx, ny, nz) < 2:
         return empty
     lib = load("marching_cubes")
-    rows, words = nx * ny, -(-(nz - 1) // 32)
+    rows, words = nx * ny, -(-nz // 32)
     with torch.cuda.device(dev):
         tables = _device_tables(dev)
-        amask = torch.empty(rows * words, dtype=torch.int32, device=dev)
-        counts = torch.empty((3, rows), dtype=torch.int32, device=dev)
+        chunk_words = torch.empty(rows * words, dtype=torch.int64, device=dev)
+        counts = torch.zeros(len(COUNTS) * rows + 1, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.scorp_mc_count(tsdf.data_ptr(), weight.data_ptr(), nx, ny, nz,
-                                 tables.data_ptr(), amask.data_ptr(), counts.data_ptr(), stream)
+                                 tables.data_ptr(), chunk_words.data_ptr(), counts.data_ptr(),
+                                 stream)
         if err != 0:
             raise RuntimeError(f"marching_cubes count launch failed: cudaError {err}")
         marching_cubes.launches += 1
-        # one scan over the three count rows in turn (a scan of a [3, rows]
-        # tensor along its rows runs three rows wide), each row's start taken
-        # off after
-        ends = torch.cumsum(counts.view(-1), 0).view(3, rows)
-        ends = ends - torch.cat([ends.new_zeros(1), ends[:2, -1]])[:, None]
-        nverts, ncents, nfaces = ends[:, -1].tolist()  # the call's one read to the host
+        # one scan over the row counts in turn (each count's rows start where
+        # the one before ends), and the call's one read to the host: each
+        # count's end and the chunks the later passes visit
+        ends = torch.cumsum(counts[:-1], 0)
+        *cum, touched = torch.cat([ends[rows - 1::rows], counts[-1:]]).tolist()
+        nverts, vchunks, ncents, nfaces, cchunks = np.diff([0] + cum).tolist()
+        marching_cubes.chunks += rows * words
+        marching_cubes.active_chunks += touched
         if nfaces == 0:
             return empty
-        starts = ends - counts
         verts = torch.empty((nverts + ncents, 3), dtype=torch.float64, device=dev)
         vcols = torch.empty_like(verts)
         faces = torch.empty((nfaces, 3), dtype=torch.int64, device=dev)
-        vcode = torch.empty(nverts, dtype=torch.int32, device=dev)
+        # the later passes' lists (csrc/marching_cubes.cu scorp_mc_emit), int64
+        # words: a vertex chunk's ballots (16 B), entry and first vertex; each
+        # chunk's slot (int32); a cell chunk's entry, first centroid and face
+        scratch = torch.empty(4 * vchunks + -(-rows * words // 2) + 3 * cchunks,
+                              dtype=torch.int64, device=dev)
         scale, centre = (1.0, (0.0, 0.0, 0.0)) if contract is None else contract
         err = lib.scorp_mc_emit(
             tsdf.data_ptr(), colors.data_ptr(), nx, ny, nz, tables.data_ptr(),
-            amask.data_ptr(), counts.data_ptr(), starts.data_ptr(), nverts,
+            chunk_words.data_ptr(), counts.data_ptr(), ends.data_ptr(), nverts,
+            vchunks, cchunks,
             *(float(o) for o in np.asarray(origin, np.float64).reshape(3)), float(voxel_size),
             int(contract is not None), float(scale),
             *(float(c) for c in np.asarray(centre, np.float64).reshape(3)),
-            verts.data_ptr(), vcols.data_ptr(), faces.data_ptr(), vcode.data_ptr(), stream)
+            verts.data_ptr(), vcols.data_ptr(), faces.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"marching_cubes emit launch failed: cudaError {err}")
     return verts, faces, vcols
 
 
 marching_cubes.launches = 0
+marching_cubes.chunks = 0
+marching_cubes.active_chunks = 0

@@ -12,18 +12,22 @@ counters and the spans; the benchmark's reference
 (`bench_port/reference/marching_cubes.py`): its case tables, its mesh of
 seeded fused grids, and its float32-t control failing the cell's limits;
 the readers and the work model; and the `room2dgs-mesh-extract` cell run
-whole at a tiny size in a fresh process. On the card (marked `cuda`,
-skipped elsewhere): M against the plain path bit for bit on fused grids of
-both kinds at 64^3 and 256^3, on slabs of the room's contracted 1024^3 grid,
-its launch counter (also on grids that launch nothing or find no surface)
-and its memory peak over the whole 1024^3 grid. On a GPU
-machine:
+whole at a tiny size in a fresh process; M's chunk counters and its C
+entry points against `ops/_build.py`'s signatures. On the card (marked
+`cuda`, skipped elsewhere): M against the plain path bit for bit on fused
+grids of both kinds at 64^3, 101^3 (odd rows, every alignment) and 256^3,
+on a surface-dense grid whose chunks are nearly all listed, on a grid whose
+surface lies in the last chunk of each row and across the count pass's
+tile borders, on slabs of the room's contracted 1024^3 grid, its counters
+(also on grids that launch nothing or find no surface) and its memory peak
+over the whole 1024^3 grid. On a GPU machine:
 
     python -m pytest tests/test_torch_marching_cubes.py -q
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -34,6 +38,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from bench_port.reference import marching_cubes as ref_mc
+from scorp_tpu_torch.ops import _build
 from scorp_tpu_torch.ops import marching_cubes as mc_ops
 from scorp_tpu_torch.pipeline import marching_cubes as tmc
 from scorp_tpu_torch.pipeline import mesh
@@ -84,6 +89,42 @@ def _field(kind: str, shape=(23, 19, 27), seed=0):
         w[rng.uniform(size=f.shape) < 0.03] = 0
     colors = rng.uniform(size=f.shape + (3,))
     return f.astype(np.float32), w, colors.astype(np.float32)
+
+
+def _dense_field(shape, seed=0):
+    """A high-frequency analytic field observed everywhere: nearly every
+    cell holds surface."""
+    x, y, z = np.meshgrid(*[np.arange(n, dtype=np.float64) for n in shape], indexing="ij")
+    f = np.sin(1.9 * x + 0.3) * np.sin(2.3 * y + 0.7) * np.sin(2.1 * z + 0.1) + 0.05
+    colors = np.random.default_rng(seed).uniform(size=tuple(shape) + (3,))
+    return f.astype(np.float32), np.ones(shape, np.float32), colors.astype(np.float32)
+
+
+def _border_field(shape, seed=0):
+    """Surface only in the last 32-corner chunk of each row (a wavy plane
+    near z = NZ - 5.5, observed from NZ - 12 on) and in a ball around the
+    corner (8, 14, 128), where the count pass's tiles (mc_ops.TILE) meet."""
+    x, y, z = np.meshgrid(*[np.arange(n, dtype=np.float64) for n in shape], indexing="ij")
+    f = z - (shape[2] - 5.5) + 0.3 * np.sin(x + 2 * y)
+    w = (z >= shape[2] - 12).astype(np.float64)
+    ball = sum((g - c) ** 2 for g, c in zip((x, y, z), mc_ops.TILE))
+    f = np.where(ball < 49, np.sqrt(ball) - 4.3, f)
+    w = np.where(ball < 49, 1.0, w)
+    colors = np.random.default_rng(seed).uniform(size=tuple(shape) + (3,))
+    return f.astype(np.float32), w.astype(np.float32), colors.astype(np.float32)
+
+
+@pytest.mark.parametrize("field, shape", [(_dense_field, (11, 15, 33)),
+                                          (_border_field, (11, 17, 140))])
+def test_slab_path_on_the_card_tests_fields(field, shape, monkeypatch):
+    """The card tests' surface-dense and tile-border fields: the slab path
+    (split into slabs of 3 planes) is the whole-grid function's mesh."""
+    tsdf, weight, colors = field(shape)
+    _slabs_of(3, shape, monkeypatch)
+    origin, vs = np.array([-2.0, 0.5, 1.0]), 0.21
+    want = _jmc().marching_cubes(tsdf, weight, origin, vs, colors)
+    assert len(want[1]) > 500 and _same(tmc.marching_cubes(tsdf, weight, origin, vs, colors),
+                                        want)
 
 
 def _slabs_of(planes: int, shape, monkeypatch):
@@ -217,22 +258,62 @@ def test_triangulate_span_and_no_launch_on_the_cpu(views):
     v = _volume("bounded", 16)
     depth, color, cam, _ = views[0]
     v.integrate(depth, color, cam)
-    launches = mc_ops.marching_cubes.launches
+    counters = _counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         v.triangulate()
         v.triangulate()
     names = [e.name for e in prof.events() if e.device_type != DeviceType.CUDA]
     assert names.count("mesh.triangulate") == 2 and "mesh.to_host" not in names
-    assert mc_ops.marching_cubes.launches == launches
+    assert _counters() == counters
+
+
+def _counters():
+    """M's counters: triangulations launched, chunks of their grids, chunks
+    the later passes visited."""
+    fn = mc_ops.marching_cubes
+    return fn.launches, fn.chunks, fn.active_chunks
+
+
+def test_counters_start_at_zero():
+    """A fresh process: the wrapper has its three counters, all 0."""
+    code = ("from scorp_tpu_torch.ops.marching_cubes import marching_cubes as m; "
+            "print(m.launches, m.chunks, m.active_chunks)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["0", "0", "0"]
+
+
+def _entry_points():
+    """(source, C entry point, argument kinds) of every kernel library."""
+    return [(src, fn, kinds) for src, fns in _build.SIGNATURES.items()
+            for fn, kinds in fns.items()]
+
+
+@pytest.mark.parametrize("src, fn, kinds", _entry_points())
+def test_signatures_match_the_c_entry_points(src, fn, kinds):
+    """Each ctypes signature in `ops/_build.py` has the C entry point's
+    arguments, kind by kind (a pointer, int, size_t, float or double)."""
+    text = (_build.CSRC_DIR / f"{src}.cu").read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+    assert m, fn
+    got = ""
+    for arg in m.group(1).split(","):
+        arg = arg.strip()
+        got += ("p" if "*" in arg else "z" if arg.startswith("size_t") else
+                "d" if arg.startswith("double") else "f" if arg.startswith("float") else
+                "i" if arg.startswith("int") else "?")
+    assert got == kinds
 
 
 def test_wrapper_refuses_cpu_tensors():
     v = _volume("bounded", 8)
-    launches = mc_ops.marching_cubes.launches
+    counters = _counters()
     with pytest.raises(ValueError, match="TsdfVolume.triangulate runs the plain function"):
         mc_ops.marching_cubes(v.tsdf, v.weight, v.colors, (8, 8, 8), origin=v.base,
                               voxel_size=v.scale)
-    assert mc_ops.marching_cubes.launches == launches
+    assert _counters() == counters
 
 
 def test_uploaded_tables_hold_the_module_tables():
@@ -452,17 +533,91 @@ def test_kernel_equals_the_plain_path(dev, kind, res):
 @pytest.mark.cuda
 def test_launches_count_triangulations_launched(dev):
     """`marching_cubes.launches` counts what reached the card: a grid under
-    two voxels a side launches nothing and counts nothing; a grid with no
-    surface launches its count pass, counts one and gives an empty mesh."""
-    for shape, counted in (((1, 5, 5), 0), ((5, 5, 5), 1)):
+    two voxels a side launches nothing and counts nothing (no chunk either);
+    a grid with no surface launches its count pass, counts one and its 25
+    chunks, none of them visited, and gives an empty mesh."""
+    for shape, counted in (((1, 5, 5), (0, 0, 0)), ((5, 5, 5), (1, 25, 0))):
         m = int(np.prod(shape))
-        launches = mc_ops.marching_cubes.launches
+        before = _counters()
         got = mc_ops.marching_cubes(
             torch.ones(m, device=dev), torch.ones(m, device=dev),
             torch.zeros((m, 3), device=dev), shape, origin=np.zeros(3), voxel_size=1.0)
-        assert mc_ops.marching_cubes.launches - launches == counted, shape
+        assert tuple(a - b for a, b in zip(_counters(), before)) == counted, shape
         assert [tuple(a.shape) for a in got] == [(0, 3)] * 3
         assert [a.dtype for a in got] == [torch.float64, torch.int64, torch.float64]
+
+
+def _kernel_vs_plain(dev, tsdf, weight, colors, origin=(-2.0, 0.5, 1.0), voxel_size=0.01,
+                     contract=None):
+    """M's mesh of host arrays against the plain path's, bit for bit; the
+    counters' change: (chunks, chunks visited)."""
+    shape = tsdf.shape
+    before = _counters()
+    got = [a.cpu().numpy() for a in mc_ops.marching_cubes(
+        torch.as_tensor(tsdf.ravel(), device=dev), torch.as_tensor(weight.ravel(), device=dev),
+        torch.as_tensor(colors.reshape(-1, 3), device=dev), shape, origin=np.asarray(origin),
+        voxel_size=voxel_size, contract=contract)]
+    after = _counters()
+    wv, wf, wc = tmc.marching_cubes(tsdf, weight, np.asarray(origin), voxel_size, colors)
+    if contract is not None:
+        wv = mesh.uncontract(wv) * contract[0] + contract[1]
+    assert len(wf) > 1000 and _same(got, (wv, wf, wc))
+    assert after[0] - before[0] == 1
+    chunks, visited = after[1] - before[1], after[2] - before[2]
+    assert chunks == shape[0] * shape[1] * -(-shape[2] // 32) and 0 < visited <= chunks
+    return chunks, visited
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bounded", "contracted"])
+def test_kernel_on_an_odd_grid(dev, kind):
+    """A 101^3 grid fused by T from the card views: odd NX and NY, NZ not a
+    multiple of 4 or 32, so its rows start at every 4-byte alignment and
+    the count pass reads most of them a float at a time. M's mesh is the
+    plain path's, bit for bit."""
+    v = _card_volume(kind, 101, dev)
+    for depth, color, cam in _card_views(dev):
+        v.integrate(depth, color, cam)
+    before = _counters()
+    got = v.triangulate()
+    after = _counters()
+    want = _host_path(v, tmc.marching_cubes)
+    assert len(want[1]) > 1000 and _same(got, want)
+    assert after[0] - before[0] == 1 and after[1] - before[1] == 101 * 101 * 4
+    assert 0 < after[2] - before[2] <= after[1] - before[1]
+
+
+@pytest.mark.cuda
+def test_kernel_on_a_surface_dense_grid(dev):
+    """Nearly every chunk holds surface, so the lists fill to their
+    capacity and the later passes walk almost the whole grid."""
+    chunks, visited = _kernel_vs_plain(dev, *_dense_field((64, 70, 131)),
+                                       contract=(1.5, np.array([0.1, -0.2, 0.3])))
+    assert visited > 0.95 * chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("palette", [(-1.0, -0.0, 0.0, 0.5, -0.25, 1.0), (-0.0,)])
+def test_kernel_on_signed_colours(dev, palette):
+    """Colours of either sign and signed zeros, unobserved speckle, the grid
+    at the origin: centroid colours sum as numpy's reduction does (from +0),
+    so even a loop of -0.0 colours gives the plain path's +0.0. (No tsdf is
+    exactly 0: np.clip keeps or drops the sign of a t of -0.0 by numpy
+    release, so the plain path's edge colours then depend on it.)"""
+    rng = np.random.default_rng(5)
+    shape = (13, 17, 70)
+    tsdf = rng.uniform(-1, 1, shape).astype(np.float32)
+    weight = (rng.uniform(size=shape) < 0.9).astype(np.float32)
+    colors = rng.choice(np.array(palette, np.float32), size=shape + (3,))
+    _kernel_vs_plain(dev, tsdf, weight, colors, origin=np.zeros(3), voxel_size=1.0)
+
+
+@pytest.mark.cuda
+def test_kernel_on_the_last_chunk_and_tile_borders(dev):
+    """The only surface lies in the last chunk of each row (12 corners of
+    it) and in a ball across the count pass's tile borders in x, y and z."""
+    chunks, visited = _kernel_vs_plain(dev, *_border_field((19, 31, 300)))
+    assert visited < 0.2 * chunks
 
 
 def _room_grid(dev, views=4):
