@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..pipeline import marching_cubes as mc
+from ..utils.trace import span
 from ._build import check_tensor, load
 
 REPLACES = ("none: the JAX package triangulates on the host with numpy "
@@ -107,7 +108,9 @@ def marching_cubes(tsdf: torch.Tensor, weight: torch.Tensor, colors: torch.Tenso
         # the one before ends), and the call's one read to the host: each
         # count's end and the chunks the later passes visit
         ends = torch.cumsum(counts[:-1], 0)
-        *cum, touched = torch.cat([ends[rows - 1::rows], counts[-1:]]).tolist()
+        totals = torch.cat([ends[rows - 1::rows], counts[-1:]])
+        with span("sync.mc_totals"):
+            *cum, touched = totals.tolist()
         nverts, vchunks, ncents, nfaces, cchunks = np.diff([0] + cum).tolist()
         marching_cubes.chunks += rows * words
         marching_cubes.active_chunks += touched

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.trace import span
 from .._build import check_tensor, load
 from .common import (
     TILE,
@@ -104,7 +105,9 @@ def expand_inputs(prep: Routable, width: int, height: int, k_cap: int,
     starts = torch.clamp_max(starts, k_cap).to(torch.int32)
     limit = torch.clamp_max(total, k_cap).to(torch.int32).reshape(1)
     # the read waits for the device: launch all that does not need it first
-    slots = key_slots(int(total), k_cap)
+    with span("sync.route_total"):
+        total_keys = int(total)
+    slots = key_slots(total_keys, k_cap)
     return ExpandInputs(
         starts=starts,
         limit=limit,

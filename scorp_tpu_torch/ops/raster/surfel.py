@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from ...core import sh as sh_lib
 from ...core.camera import Camera
 from ...core.quat import quat_to_rotmat
+from ...utils.trace import span
 from .common import TILE, _tile_index, expected_depth, grid_dims, log2_opacity
 
 ALPHA_MIN = 1.0 / 255.0
@@ -318,7 +319,8 @@ def depth_to_normal(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
     dev, dt = depth.device, depth.dtype
     fx = w / (2.0 * cam.tanfovx)
     fy = h / (2.0 * cam.tanfovy)
-    c2w = torch.linalg.inv(cam.viewmatrix.T)
+    with span("sync.camera_inverse"):  # the inverse's error check reads its info to the host
+        c2w = torch.linalg.inv(cam.viewmatrix.T)
     ys, xs = torch.meshgrid(torch.arange(h, dtype=dt, device=dev),
                             torch.arange(w, dtype=dt, device=dev), indexing="ij")
     rays = torch.stack([(xs - w / 2.0) / fx, (ys - h / 2.0) / fy, torch.ones_like(xs)], -1)

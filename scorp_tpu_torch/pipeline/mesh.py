@@ -247,7 +247,8 @@ class TsdfVolume:
                 host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True) for a in mesh]
                 for h, a in zip(host, mesh):
                     h.copy_(a, non_blocking=True)
-                torch.cuda.current_stream(self.device).synchronize()
+                with span("sync.mesh_copy"):
+                    torch.cuda.current_stream(self.device).synchronize()
                 verts, tris, cols = (h.numpy() for h in host)
         else:
             with span("mesh.triangulate"):

@@ -42,8 +42,10 @@ def render2d(
         if cfg is None:
             cfg = default_raster_config(gaussians.capacity)
         degree = gaussians.sh_degree if sh_degree is None else sh_degree
+        with span("sync.bg_upload"):
+            bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
         out = rasterize_surfel(
-            cam=cam, bg=torch.as_tensor(bg, dtype=torch.float32, device=dev),
+            cam=cam, bg=bg,
             sh_degree=degree, scale_modifier=scaling_modifier, cfg=cfg,
             **raster_inputs(gaussians.params, gaussians.alive, override_color),
         )

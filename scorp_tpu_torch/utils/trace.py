@@ -15,7 +15,9 @@ it (`raster.route`'s first device work is its `depth_order` child, and
 `step.forward`'s last is `step.loss`). Autograd launches the backward's
 kernels from its own thread, where only `raster.backward` is open, so
 `step.backward` has almost no footprint: its device time is what lies
-between `step.loss` and `step.update`.
+between `step.loss` and `step.update`. The ranges and CUPTI's device
+records share the profiler's clock, so an idle stretch of the device lines
+up with the range open on the host at that time.
 
 The spans, one name per stage for 3DGS and 2DGS alike; a dot nests:
 
@@ -50,6 +52,32 @@ The spans, one name per stage for 3DGS and 2DGS alike; a dot nests:
                                functions elsewhere)
   mesh.to_host                 TsdfVolume.triangulate on the card: the mesh's
                                copy to host memory
+
+The `sync.*` family names each place where the host waits for the device
+on the render, fusion and triangulation paths. A `sync.*` span is a leaf
+named by its site, not by its parent: it nests inside whatever span is
+open and encloses only the statement that makes the host wait. It opens
+on every device, so a CPU run sees every site it passes; on the card the
+host waits there, and the span's host time is the wait (its count, the
+number of waits). Kernels launched inside it, if any, are tied to it.
+
+  sync.bg_upload               render, render2d: the background's upload, a
+                               pageable host-to-device copy that synchronises
+                               the stream (the viewer's numpy background; a
+                               background already on the device passes
+                               through without a wait)
+  sync.route_total             ops/raster/expand.py expand_inputs: the read of
+                               the frame's key total that sizes K1's buffer;
+                               it waits for the depth order, the rect gather
+                               and the key scan
+  sync.camera_inverse          ops/raster/surfel.py depth_to_normal:
+                               torch.linalg.inv of the view matrix, whose
+                               error check reads its info to the host (its
+                               LU kernels are tied to this span)
+  sync.mc_totals               ops/marching_cubes.py: the read of M's totals
+                               after its count pass
+  sync.mesh_copy               TsdfVolume.triangulate on the card: the wait
+                               for the mesh's enqueued copies to host memory
 
 Counters beside the spans (host ints, summed over calls):
 `pipeline/mesh.py` `vertices` and `faces`, the meshes `triangulate` made;

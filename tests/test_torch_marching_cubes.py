@@ -489,11 +489,13 @@ def test_tiny_cell_is_correct(tiny_run):
 def test_tiny_traced_run_reads_its_layers(tiny_run):
     got, err = tiny_run
     assert got["per_layer"] == ["triangulate_ms.mesh", "mesh_copy_ms.mesh",
-                                "mc_roofline_pct.mesh"]
+                                "mc_roofline_pct.mesh", "host_syncs.mesh", "sync_wait_ms.mesh"]
     metrics = got["result"]["metrics"]
-    # the CPU runs no kernel and copies nothing: M's roofline and the copy
-    # have nothing to read
-    assert "mc_roofline_pct.mesh" not in metrics and "mesh_copy_ms.mesh" not in metrics
+    # the CPU runs no kernel, copies nothing and waits for no device: M's
+    # roofline, the copy and the host waits have nothing to read
+    for name in ("mc_roofline_pct.mesh", "mesh_copy_ms.mesh", "host_syncs.mesh",
+                 "sync_wait_ms.mesh"):
+        assert name not in metrics, name
     assert isinstance(metrics["triangulate_ms.mesh"]["value"], float)
     assert "work model counts" in err
 

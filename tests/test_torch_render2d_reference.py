@@ -191,8 +191,12 @@ def test_tiny_cell_is_correct(tiny_run):
 def test_tiny_traced_run_reads_every_layer(tiny_run):
     got, _ = tiny_run
     metrics = got["result"]["metrics"]
-    new = {"k4_roofline_pct.render2d", "surfel_cull_ms.render2d", "surfel_maps_ms.render2d"}
-    assert new <= set(got["per_layer"]) and len(got["per_layer"]) == 12
+    new = {"k4_roofline_pct.render2d", "surfel_cull_ms.render2d", "surfel_maps_ms.render2d",
+           "host_syncs.render", "sync_wait_ms.render"}
+    assert new <= set(got["per_layer"]) and len(got["per_layer"]) == 14
+    # the sync spans open on the CPU too: the background, the key total, the
+    # camera's inverse
+    assert metrics["host_syncs.render"]["value"] == 3.0
     # no kernel runs on the CPU, so K4's roofline has nothing to read; the
     # eval path writes the cull ellipses in its fused preprocess and opens
     # no raster.surfel_cull span, so its reader is silent too

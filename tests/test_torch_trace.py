@@ -1,16 +1,27 @@
 """The program's spans (scorp_tpu_torch/utils/trace.py) on the CPU: which
 spans a render, a training step and a densification round record under
-torch.profiler, how they nest, that they cost nothing without a profiler,
-and the benchmark's readers of them (bench_port/metrics/)."""
+torch.profiler, how they nest, that the `sync.*` spans are leaves and that
+a fusion or a host triangulation opens none, that they cost nothing
+without a profiler, and the benchmark's readers of them
+(bench_port/metrics/). On the card (marked `cuda`, skipped elsewhere):
+every host wait that torch.cuda.set_sync_debug_mode("warn") reports in a
+render, a 2DGS render, a fusion and a contracted triangulation lies in a
+`sync.*` span of the program, one wait a span. On a GPU machine:
+
+    python -m pytest tests/test_torch_trace.py -q -m cuda
+"""
 
 import importlib.util
 import os
+import traceback
+import warnings
 from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 from torch.autograd import DeviceType
+from torch.autograd.profiler import record_function
 from torch.profiler import ProfilerActivity, profile
 
 from scorp_tpu_torch.apps.train_3dgs import densify_round
@@ -20,6 +31,8 @@ from scorp_tpu_torch.render2d import render2d
 from scorp_tpu_torch.train import (Opt2DParams, OptParams, init_adam, state_from_numpy,
                                    train_step, train_step_2d)
 from scorp_tpu_torch.utils import trace
+# the fusion tests' analytic maps and grids (pytest puts tests/ on the path)
+from test_torch_tsdf_fuse import _card_views, _card_volume
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, N = 64, 48, 300
@@ -27,26 +40,31 @@ W, H, N = 64, 48, 300
 RASTER = ["raster.preprocess", "raster.route", "raster.route.depth_order",
           "raster.route.expand", "raster.route.sort", "raster.gather", "raster.composite"]
 STEP = ["step.forward", "step.loss", "step.backward", "step.update", "raster.backward"]
+# the host waits of a render: the background's upload and the routing's
+# read of the key total; 2DGS adds the camera's inverse in depth_to_normal
+SYNC = {"sync.bg_upload": 1, "sync.route_total": 1}
 EXPECTED = {
-    "render": {"render": 1, **dict.fromkeys(RASTER, 1)},
+    "render": {"render": 1, **dict.fromkeys(RASTER, 1), **SYNC},
     # the eval path's fused surfel preprocess writes the cull ellipses inside
     # raster.preprocess; only the grad path opens raster.surfel_cull
-    "render2d": {"render": 1, "render.surfel_maps": 1, **dict.fromkeys(RASTER, 1)},
-    "train_step": {**dict.fromkeys(RASTER, 1), **dict.fromkeys(STEP, 1)},
+    "render2d": {"render": 1, "render.surfel_maps": 1, **dict.fromkeys(RASTER, 1), **SYNC,
+                 "sync.camera_inverse": 1},
+    "train_step": {**dict.fromkeys(RASTER, 1), **dict.fromkeys(STEP, 1), "sync.route_total": 1},
     "train_step_2d": {"raster.surfel_cull": 1, **dict.fromkeys(RASTER, 1),
-                      **dict.fromkeys(STEP, 1)},
+                      **dict.fromkeys(STEP, 1), "sync.route_total": 1,
+                      "sync.camera_inverse": 1},
 }
-PROGRAM = ("render", "raster.", "step.", "densify.")
+PROGRAM = ("render", "raster.", "step.", "densify.", "mesh.", "sync.")
 
 
-def _state(surfel: bool, seed: int = 0):
+def _state(surfel: bool, seed: int = 0, device="cpu"):
     rng = np.random.default_rng(seed)
     params = dict(
         xyz=rng.uniform(-1, 1, (N, 3)), f_dc=rng.normal(0, 0.5, (N, 1, 3)),
         f_rest=rng.normal(0, 0.05, (N, 15, 3)),
         scaling=np.log(rng.uniform(0.03, 0.1, (N, 2 if surfel else 3))),
         rotation=rng.normal(size=(N, 4)), opacity=rng.normal(0, 1, (N, 1)))
-    return state_from_numpy(params, np.ones(N, bool), device="cpu")
+    return state_from_numpy(params, np.ones(N, bool), device=device)
 
 
 def _call(what: str):
@@ -100,10 +118,15 @@ def test_children_inside_their_parent(what):
     outer = "step.forward" if what == "train_step_2d" else "render"
     for name in RASTER + (["raster.surfel_cull"] if what == "train_step_2d" else []):
         parents.setdefault(name, outer)
+    parents["sync.route_total"] = "raster.route"
+    if what != "train_step_2d":
+        parents["sync.bg_upload"] = "render"
     if what == "render2d":
-        parents["render.surfel_maps"] = "render"
+        parents.update({"render.surfel_maps": "render",
+                        "sync.camera_inverse": "render.surfel_maps"})
     if what == "train_step_2d":
-        parents.update({"step.loss": "step.forward", "raster.backward": "step.backward"})
+        parents.update({"step.loss": "step.forward", "raster.backward": "step.backward",
+                        "sync.camera_inverse": "step.forward"})
     for child, parent in parents.items():
         c, p = by_name[child].time_range, by_name[parent].time_range
         assert p.start <= c.start and c.end <= p.end, (child, parent)
@@ -146,6 +169,41 @@ def test_densify_round_span_when_a_round_fires():
     fired = _profiled(at(opt.densify_from_iter + opt.densification_interval))
     assert [e.name for e in fired] == ["densify.round"]
     assert _profiled(at(opt.densify_from_iter + opt.densification_interval + 1)) == []
+
+
+@pytest.mark.parametrize("what", sorted(EXPECTED))
+def test_sync_spans_are_leaves(what):
+    """A `sync.*` span encloses only the statement that makes the host
+    wait: no other span of the program opens inside it."""
+    events = _profiled(_call(what))
+    waits = [e.time_range for e in events if e.name.startswith("sync.")]
+    assert waits
+    for e in events:
+        r = e.time_range
+        if not e.name.startswith("sync."):
+            assert not any(w.start <= r.start and r.end <= w.end for w in waits), e.name
+
+
+def _mesh_call(what: str, dev, res: int = 32):
+    """One view's fusion into a contracted grid, or the triangulation of a
+    contracted grid three analytic views fused, as a no-argument call."""
+    views = _card_views(dev)
+    v = _card_volume("contracted", res, dev)
+    if what == "integrate":
+        depth, color, cam = views[0]
+        return lambda: v.integrate(depth, color, cam)
+    for depth, color, cam in views:
+        v.integrate(depth, color, cam)
+    return v.triangulate
+
+
+@pytest.mark.parametrize("what", ["integrate", "triangulate"])
+def test_fusion_and_host_triangulation_open_no_sync_span(what):
+    """On the CPU a view's fusion (the plain update) and the host's marching
+    cubes wait for no device: each opens its `mesh.*` span and no `sync.*`
+    span (the triangulation's two waits are the card path's)."""
+    names = Counter(e.name for e in _profiled(_mesh_call(what, torch.device("cpu"))))
+    assert names == {"integrate": {"mesh.fuse": 1}, "triangulate": {"mesh.triangulate": 1}}[what]
 
 
 def test_off_without_a_profiler():
@@ -224,3 +282,130 @@ def test_span_reader_silent_without_its_span(name):
 def test_routing_reader_without_a_depth_order_span():
     labels = {k: v for k, v in LABELS.items() if k != "raster.route.depth_order"}
     assert _reader("routing_ms.render").read(_ctx(labels)) == pytest.approx(1e3 * 0.06 / FRAMES)
+
+
+# the host-wait readers (bench_port/metrics/_syncs.py): every `sync.*` label
+# of the trace, over the loop's own unit label
+
+EXTRACTS = 5
+RENDER_WAITS = {
+    "unit.render": _label(FRAMES, 0.30, 0.0),
+    "render": _label(FRAMES, 0.24, 0.20),
+    "sync.bg_upload": _label(FRAMES, 0.002, 0.0),
+    "sync.route_total": _label(FRAMES, 0.024, 0.0),
+    "sync.camera_inverse": _label(FRAMES, 0.031, 0.0004),
+}
+MESH_WAITS = {
+    "unit.extract": _label(EXTRACTS, 0.07, 0.0),
+    "mesh.triangulate": _label(EXTRACTS, 0.016, 0.023),
+    "sync.mc_totals": _label(EXTRACTS, 0.0125, 0.0),
+    "sync.mesh_copy": _label(EXTRACTS, 0.035, 0.0),
+}
+SYNC_READS = {  # reader -> (its loop, the labels, its reading)
+    "host_syncs.render": ("render", RENDER_WAITS, 3.0),
+    "sync_wait_ms.render": ("render", RENDER_WAITS, 1e3 * (0.002 + 0.024 + 0.031) / FRAMES),
+    "host_syncs.mesh": ("extract2d", MESH_WAITS, 2.0),
+    "sync_wait_ms.mesh": ("extract2d", MESH_WAITS, 1e3 * (0.0125 + 0.035) / EXTRACTS),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SYNC_READS))
+def test_sync_reader_values(name):
+    loop, labels, want = SYNC_READS[name]
+    assert _reader(name).read(_ctx(labels, loop)) == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("name", sorted(SYNC_READS))
+def test_sync_reader_silent_outside_its_loop_and_without_sync_spans(name):
+    """None in the other loops, in a trace of a program that opens no
+    `sync.*` span, and in a trace without the loop's unit label."""
+    loop, labels, _ = SYNC_READS[name]
+    for other in ("render", "extract2d", "fuse2d", "train"):
+        if other != loop:
+            assert _reader(name).read(_ctx(labels, other)) is None, other
+    no_waits = {k: v for k, v in labels.items() if not k.startswith("sync.")}
+    assert _reader(name).read(_ctx(no_waits, loop)) is None
+    no_units = {k: v for k, v in labels.items() if not k.startswith("unit.")}
+    assert _reader(name).read(_ctx(no_units, loop)) is None
+
+
+# ---------------------------------------------------------------- card
+
+# the `sync.*` spans of one call on the card, by name
+CARD = {"render": SYNC, "render2d": {**SYNC, "sync.camera_inverse": 1}, "integrate": {},
+        "triangulate": {"sync.mc_totals": 1, "sync.mesh_copy": 1}}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the host waits for the card)")
+    return torch.device("cuda", 0)
+
+
+def _card_call(what: str, dev):
+    """One render, 2DGS render (with the viewer loops' host background and
+    arguments), fusion or contracted triangulation on the card."""
+    if what in ("integrate", "triangulate"):
+        return _mesh_call(what, dev, 64)
+    cam = look_at_camera([0, 0, -4], [0, 0, 0], [0, -1, 0], 0.8, 0.6, W, H, device=dev)
+    state = _state(what == "render2d", device=dev)
+    bg = np.zeros(3, np.float32)
+    if what == "render":
+        return lambda: render(cam, state, bg, sh_degree=3)
+    return lambda: render2d(cam, state, bg, sh_degree=3, depth_ratio=1.0)
+
+
+def host_waits(fn):
+    """(waits, spans) of one call of fn() after a warm-up call. waits: for
+    each host synchronisation that torch.cuda.set_sync_debug_mode("warn")
+    reports, (the innermost span of the program open there or None, the
+    innermost line of scorp_tpu_torch on the stack as "path:line").
+    spans: the `sync.*` spans the call recorded under torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    opened, waits = [], []
+
+    class Tracked(record_function):  # keeps the names of the open spans
+        def __enter__(self):
+            opened.append(self.name)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            opened.pop()
+            return super().__exit__(*exc)
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" in str(message):
+            site = [f for f in traceback.extract_stack() if "scorp_tpu_torch" in f.filename]
+            where = (f"{os.path.relpath(site[-1].filename, ROOT)}:{site[-1].lineno}" if site
+                     else f"{filename}:{lineno}")
+            waits.append((opened[-1] if opened else None, where))
+
+    real = trace.record_function
+    trace.record_function = Tracked
+    try:
+        with warnings.catch_warnings(), profile(activities=[ProfilerActivity.CPU]) as prof:
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        trace.record_function = real
+    spans = Counter(e.name for e in prof.events()
+                    if e.device_type != DeviceType.CUDA and e.name.startswith("sync."))
+    return waits, spans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", sorted(CARD))
+def test_every_host_wait_lies_in_a_sync_span(dev, what):
+    """Each host synchronisation of the call lies in a `sync.*` span, one a
+    span: a new wait on these paths fails here until it is named. The
+    fusion waits for nothing."""
+    waits, spans = host_waits(_card_call(what, dev))
+    assert all(s is not None and s.startswith("sync.") for s, _ in waits), waits
+    assert Counter(s for s, _ in waits) == spans == CARD[what], waits
